@@ -18,10 +18,12 @@ from chip_smoke import look_at_c2w
 from touchgs_torch.config import ModelConfig, RasterizeConfig, TrainConfig
 from touchgs_torch.data.cameras import Camera, Cameras
 from touchgs_torch.data.scene import Scene
+from touchgs_torch.ops import anatomy, cuda_build
 from touchgs_torch.ops import rasterize_cuda as rc
 from touchgs_torch.ops import rasterize_plain as plain
 from touchgs_torch.ops.projection import project_gaussians
 from touchgs_torch.ops.tiles import bin_gaussians
+from touchgs_torch.tools.exp_kernel_anatomy import probe_inputs
 from touchgs_torch.train.trainer import Trainer
 
 W, H = 96, 64           # 3x2 tiles of 32x32
@@ -210,3 +212,84 @@ def test_trainer_on_card_matches_cpu(cuda_device):
         g = np.array([m[key] for m in logs["cuda"]])
         assert np.isfinite(g).all()
         np.testing.assert_allclose(g, c, rtol=1e-3, err_msg=key)
+
+
+@pytest.mark.cuda
+def test_compile_smoke_on_card(cuda_device):
+    x = torch.arange(8 * 128, dtype=torch.float32,
+                     device=cuda_device).reshape(8, 128)
+    before = cuda_build.launches["compile_smoke"]
+    out = cuda_build.compile_smoke(x)
+    torch.cuda.synchronize()
+    assert torch.equal(out, cuda_build.compile_smoke_plain(x))
+    assert torch.equal(cuda_build.compile_smoke(), torch.full_like(x, 2.0))
+    assert cuda_build.launches["compile_smoke"] == before + 2
+
+
+def _tiles_on(dev, case, k_chunk):
+    if case == "scene":
+        _, _, at, counts = _scene_tiles(dev)
+    else:
+        at_np, counts_np = saturating_tiles()
+        at = torch.as_tensor(at_np, device=dev)
+        counts = torch.as_tensor(counts_np, device=dev)
+    nc = ((counts + k_chunk - 1) // k_chunk).to(torch.int32)
+    tids = torch.arange(N_TILES, dtype=torch.int32, device=dev)
+    return at, nc, tids
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_chunk", [64, 128])
+@pytest.mark.parametrize("case", ["scene", "saturating"])
+def test_forward_without_exit_matches_plain(cuda_device, case, k_chunk):
+    at, nc, tids = _tiles_on(cuda_device, case, k_chunk)
+    args = (nc, tids, at, 32, 32, K_TILE, k_chunk, N_TX, RasterizeConfig())
+    fwd = rc.forward_tiles(*args, early_exit=False)
+    fwd_p = plain.forward_tiles_plain(*args, early_exit=False)
+    torch.cuda.synchronize()
+    done = fwd[:, plain.ROW_DONE, 0]
+    assert torch.equal(done, torch.clamp(nc, max=K_TILE // k_chunk).float())
+    assert torch.equal(fwd[:, plain.ROW_DONE], fwd_p[:, plain.ROW_DONE])
+    torch.testing.assert_close(fwd[:, 3], fwd_p[:, 3], atol=3e-4, rtol=0)
+    rgba_t = [0, 1, 2, 4, plain.ROW_T]
+    torch.testing.assert_close(fwd[:, rgba_t], fwd_p[:, rgba_t], atol=3e-5,
+                               rtol=0)
+
+
+def _tile_rel_err(out, ref):
+    scale = ref.abs().amax(dim=(1, 2)).clamp(min=1e-30)
+    return float(((out - ref).abs().amax(dim=(1, 2)) / scale).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", anatomy.MODES)
+@pytest.mark.parametrize("case", ["scene", "saturating"])
+def test_anatomy_variant_matches_plain(cuda_device, case, mode):
+    """K5 against its plain version: 3e-5 of the tile's largest output
+    (the plain version's cumulative product and sums round in another
+    order; α is bit-identical)."""
+    at, nc, tids = _tiles_on(cuda_device, case, 128)
+    args = (nc, tids, at, 32, 32, K_TILE, 128, N_TX, RasterizeConfig())
+    before = anatomy.launches[f"anatomy_{mode}"]
+    out = anatomy.variant(mode, *args)
+    ref = anatomy.variant_plain(mode, *args)
+    torch.cuda.synchronize()
+    assert anatomy.launches[f"anatomy_{mode}"] == before + 1
+    assert float(ref[:, 0].max()) > 0.1
+    assert _tile_rel_err(out, ref) <= 3e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leg", ["f32", "bf16"])
+def test_bf16_probe_matches_plain(cuda_device, leg):
+    """K6 against its plain version on the card: f32 1e-5 of the tile's
+    largest output (sum order); bf16 2^-6 (h2exp2 is not correctly
+    rounded: a few bf16 ulps, 2^-8 each, per α)."""
+    at = probe_inputs(n_tiles=8, device=cuda_device)[leg]
+    before = anatomy.launches[f"bf16_probe_{leg}"]
+    out = anatomy.bf16_probe(at)
+    ref = anatomy.bf16_probe_plain(at)
+    torch.cuda.synchronize()
+    assert anatomy.launches[f"bf16_probe_{leg}"] == before + 1
+    assert out.shape == (8, 1, 1024) and float(ref.max()) > 100
+    assert _tile_rel_err(out, ref) <= (1e-5 if leg == "f32" else 2.0 ** -6)

@@ -147,7 +147,7 @@ def test_backward_tiles_matches(tile_cases, case):
         assert not t[tile, done[tile] * K_CHUNK:].any()
 
 
-def _renders(scene, bg):
+def _renders(scene, bg, early_exit=True):
     """Loss with rasterize_pallas (interpret) and with rasterize_cuda."""
     proj = scene["proj"]
 
@@ -159,7 +159,7 @@ def _renders(scene, bg):
         p = proj._replace(means2d=proj.means2d + off)
         out = rp.rasterize_pallas(p, colors, opac, W, H, jcfg.RasterizeConfig(),
                                   k_tile=K_TILE, background=jnp.asarray(bg),
-                                  interpret=True)
+                                  interpret=True, early_exit=early_exit)
         return loss_of(out, jnp), out
 
     (jl, jout), jg = jax.value_and_grad(j_fn, argnums=(0, 1, 2), has_aux=True)(
@@ -174,7 +174,7 @@ def _renders(scene, bg):
     cols, op = _t(scene["colors"], True), _t(scene["opac"], True)
     tout = rc.rasterize_cuda(tproj._replace(means2d=tproj.means2d + off), cols,
                              op, W, H, tcfg.RasterizeConfig(), k_tile=K_TILE,
-                             background=_t(bg))
+                             background=_t(bg), early_exit=early_exit)
     tl = loss_of(tout, torch)
     tg = torch.autograd.grad(tl, (off, cols, op))
     return jout, jg, tout, tg

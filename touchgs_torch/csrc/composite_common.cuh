@@ -32,20 +32,27 @@ constexpr float kLn2 = 0.6931471805599453f;
 // version evaluates them.  α is then bit-identical between the two on the
 // card, so a pair sitting on the 1/255 keep threshold cannot fall on
 // different sides of it, and the tile-wide exit gate reads the same T.
+// eval_sigma is its first half, σ̃ with dx and dy, which K5's noexp mode
+// (anatomy_variants.cu) shares.
+__device__ __forceinline__ float eval_sigma(const float* a, float px,
+                                            float py, float ox, float oy,
+                                            float& dx, float& dy) {
+  const float mx = a[kMX] - ox;
+  const float my = a[kMY] - oy;
+  dx = px - mx;
+  dy = py - my;
+  return __fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(a[kCA], dx), dx),
+                             __fmul_rn(__fmul_rn(a[kCC], dy), dy)),
+                   __fmul_rn(__fmul_rn(a[kCB], dx), dy));
+}
+
 __device__ __forceinline__ void eval_alpha(const float* a, float px, float py,
                                            float ox, float oy,
                                            float alpha_clip, float alpha_thr,
                                            float& alpha, float& opx,
                                            float& expns, float& dx,
                                            float& dy) {
-  const float mx = a[kMX] - ox;
-  const float my = a[kMY] - oy;
-  dx = px - mx;
-  dy = py - my;
-  const float sigma = __fadd_rn(
-      __fadd_rn(__fmul_rn(__fmul_rn(a[kCA], dx), dx),
-                __fmul_rn(__fmul_rn(a[kCC], dy), dy)),
-      __fmul_rn(__fmul_rn(a[kCB], dx), dy));
+  const float sigma = eval_sigma(a, px, py, ox, oy, dx, dy);
   expns = exp2f(-sigma);
   opx = __fmul_rn(a[kOP], expns);
   alpha = fminf(alpha_clip, opx);

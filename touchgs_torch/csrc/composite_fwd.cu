@@ -9,7 +9,10 @@
 // The whole tile stops once the max of T over its pixels, measured TWO
 // chunks stale (the decision for chunk c reads the max after chunk c − 2),
 // is ≤ 1e-4 — exactly the JAX kernel's gate, because the backward replays
-// the recorded count (row 6 of the output).
+// the recorded count (row 6 of the output).  With early_exit = 0 (the JAX
+// kernel's early_exit=False, :278-279) the gate never fires: every chunk up
+// to min(n_chunks, k_tile/k_chunk) is composited and counted.  The flag is a
+// template parameter, so the exiting kernel's code is the same as without it.
 //
 // Bound on an H100: operations.  Each scanned (entry, pixel) pair costs
 // about 34 fp32 operations and one exp2; the bytes are the scanned attribute
@@ -32,6 +35,7 @@ namespace {
 
 using namespace touchgs;
 
+template <bool kEarlyExit>
 __global__ void __launch_bounds__(1024, 1)
 composite_fwd_kernel(const int* __restrict__ n_chunks,
                      const int* __restrict__ tile_ids,
@@ -58,7 +62,7 @@ composite_fwd_kernel(const int* __restrict__ n_chunks,
   float m1 = 1.f, m2 = 1.f;  // max T after the last and the one before
   int done = 0;
   for (int c = 0; c < nch; ++c) {
-    if (!(m2 > kSatEps)) break;
+    if (kEarlyExit && !(m2 > kSatEps)) break;
     const float* src = tile_attr + static_cast<size_t>(c) * k_chunk * kA;
     for (int i = q; i < k_chunk * kA; i += npix) s_attr[i] = src[i];
     __syncthreads();
@@ -80,6 +84,8 @@ composite_fwd_kernel(const int* __restrict__ n_chunks,
     T *= p;
     ++done;
 
+    // also without the exit: this barrier keeps the next chunk's staging
+    // from overwriting rows that other warps still read
     const float wm = warp_max(T);
     if (lane == 0) s_wmax[warp] = wm;
     __syncthreads();
@@ -106,18 +112,20 @@ extern "C" int composite_fwd_launch(const int* n_chunks, const int* tile_ids,
                                     const float* attrs, float* out,
                                     int n_tiles, int th, int tw, int k_tile,
                                     int k_chunk, int n_tx, float alpha_clip,
-                                    float alpha_thr, void* stream) {
+                                    float alpha_thr, int early_exit,
+                                    void* stream) {
   const int npix = th * tw;
   const size_t smem = static_cast<size_t>(k_chunk) * kA * sizeof(float);
+  auto kernel = early_exit ? composite_fwd_kernel<true>
+                           : composite_fwd_kernel<false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        composite_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (n_tiles > 0) {
-    composite_fwd_kernel<<<n_tiles, npix, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
+    kernel<<<n_tiles, npix, smem, static_cast<cudaStream_t>(stream)>>>(
         n_chunks, tile_ids, attrs, out, th, tw, k_tile, k_chunk, n_tx,
         alpha_clip, alpha_thr);
   }

@@ -5,18 +5,28 @@ library with a plain C launcher (``<name>_launch``), loaded with ``ctypes``.
 Builds happen at first use, one ``nvcc`` process per source, all started
 together, into ``csrc/build/<hash of the sources and flags>/``, so a changed
 source rebuilds and an unchanged one is reused.  Nothing is built on import.
+
+Beside the build: the helpers every kernel wrapper uses (device dispatch,
+argument checks, pointers, the launch itself), and ``compile_smoke``, the
+build-and-launch check (port of ``bench.py::pallas_compile_smoke``).
 """
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 from pathlib import Path
+from typing import Optional
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC / "build"
-KERNELS = ("slot_lists", "composite_fwd", "composite_bwd")
+KERNELS = ("slot_lists", "composite_fwd", "composite_bwd", "compile_smoke",
+           "anatomy_variants", "bf16_probe")
 # No fast-math flag: exp2f and the divides stay IEEE-accurate.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -28,9 +38,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # launcher argument types: pointers and the stream as c_void_p
 SIGNATURES = {
     "slot_lists": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "composite_fwd": [_P, _P, _P, _P] + [_I] * 6 + [_F, _F, _P],
+    "composite_fwd": [_P, _P, _P, _P] + [_I] * 6 + [_F, _F, _I, _P],
     "composite_bwd": [_P] * 6 + [_I] * 6 + [_F, _F, _P],
+    "compile_smoke": [_P, _P, _I, _P],
+    # n_chunks, tile_ids, attrs, out, scratch; mode, n_tiles, th, tw,
+    # k_tile, k_chunk, n_tx; alpha_clip, alpha_thr; stream
+    "anatomy_variants": [_P] * 5 + [_I] * 7 + [_F, _F, _P],
+    # attrs, out; bf16 (0/1), n_tiles; stream
+    "bf16_probe": [_P, _P, _I, _I, _P],
 }
+# launches of compile_smoke (the other wrappers count their own)
+launches = {"compile_smoke": 0}
 
 _launchers: dict = {}
 # ptxas output (registers, shared memory, spills) of the last build, by kernel
@@ -80,6 +98,30 @@ def build() -> Path:
     return out_dir
 
 
+def sass_counts(name: str) -> dict:
+    """{kernel function: Counter of SASS opcodes} of ``lib<name>.so``, from
+    ``cuobjdump -sass`` (static counts: an unrolled loop counts once per
+    copy)."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    lib = build() / f"lib{name}.so"
+    out = subprocess.run(
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(lib)],
+        capture_output=True, text=True, check=True).stdout
+    counts: dict = {}
+    current = None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            current = counts.setdefault(m.group(1), collections.Counter())
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                     line)
+        if m and current is not None:
+            current[m.group(1)] += 1
+    return counts
+
+
 def launcher(name: str):
     """The ``<name>_launch`` C function, building the libraries if needed."""
     fn = _launchers.get(name)
@@ -90,3 +132,55 @@ def launcher(name: str):
         fn.restype = ctypes.c_int
         _launchers[name] = fn
     return fn
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True when every tensor is on CUDA, False when every one is on the
+    CPU; anything else raises."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"}:
+        return True
+    raise ValueError(f"tensors on unsupported devices {sorted(kinds)}")
+
+
+def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
+                 shape: tuple) -> None:
+    if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
+        raise ValueError(f"{name}: want contiguous {dtype} {shape}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def call(name: str, *args) -> None:
+    """Run ``<name>_launch``; a nonzero CUDA error raises."""
+    err = launcher(name)(*args)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def compile_smoke_plain(x: torch.Tensor) -> torch.Tensor:
+    return x * 2.0
+
+
+def compile_smoke(x: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K4: ``x·2`` through a trivial kernel, so that a broken toolchain or
+    card fails here, before any real work.  ``x`` defaults to ones of shape
+    (8, 128) on the card; a CPU tensor takes the plain version."""
+    if x is None:
+        x = torch.ones((8, 128), dtype=torch.float32, device="cuda")
+    if not on_cuda(x):
+        return compile_smoke_plain(x)
+    check_tensor(x, "x", torch.float32, tuple(x.shape))
+    out = torch.empty_like(x)
+    call("compile_smoke", ptr(x), ptr(out), x.numel(), stream(out))
+    launches["compile_smoke"] += 1
+    return out

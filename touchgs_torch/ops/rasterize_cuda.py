@@ -25,7 +25,6 @@ so the kernels evaluate α = op·2^(−σ̃) with one exp2.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
@@ -33,6 +32,10 @@ import torch
 from touchgs_torch.config import RasterizeConfig
 from touchgs_torch.ops import cuda_build
 from touchgs_torch.ops import rasterize_plain as plain
+from touchgs_torch.ops.cuda_build import check_tensor as _check
+from touchgs_torch.ops.cuda_build import on_cuda as _on_cuda
+from touchgs_torch.ops.cuda_build import ptr as _ptr
+from touchgs_torch.ops.cuda_build import stream as _stream
 from touchgs_torch.ops.projection import ProjectedGaussians
 from touchgs_torch.ops.rasterize_ref import RenderOutput
 from touchgs_torch.ops.tiles import TileBins, bin_gaussians
@@ -44,36 +47,9 @@ _DMA_ALIGN = 128  # k_tile stays a multiple of this, as in the JAX package
 launches = {"slot_lists": 0, "composite_fwd": 0, "composite_bwd": 0}
 
 
-def _on_cuda(*tensors: torch.Tensor) -> bool:
-    """True when every tensor is on CUDA, False when every one is on the
-    CPU; anything else raises."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return False
-    if kinds == {"cuda"}:
-        return True
-    raise ValueError(f"tensors on unsupported devices {sorted(kinds)}")
-
-
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple):
-    if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-        raise ValueError(f"{name}: want contiguous {dtype} {shape}, got "
-                         f"{t.dtype} {tuple(t.shape)}")
-
-
 def _launch(name: str, *args) -> None:
-    err = cuda_build.launcher(name)(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    cuda_build.call(name, *args)
     launches[name] += 1
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
 def _check_geometry(th, tw, k_tile, k_chunk):
@@ -104,11 +80,14 @@ def slot_lists(sorted_gauss, tile_starts, counts, n_tiles: int, k_tile: int,
 
 
 def forward_tiles(n_chunks, tile_ids, attrs_tiled, th, tw, k_tile, k_chunk,
-                  n_tx, cfg: RasterizeConfig) -> torch.Tensor:
-    """K2: (n_tiles, 8, th·tw) stack [R, G, B, D, A, T, chunks_done, 0]."""
+                  n_tx, cfg: RasterizeConfig,
+                  early_exit: bool = True) -> torch.Tensor:
+    """K2: (n_tiles, 8, th·tw) stack [R, G, B, D, A, T, chunks_done, 0].
+    ``early_exit=False`` composites every chunk of each tile's list."""
     if not _on_cuda(n_chunks, tile_ids, attrs_tiled):
         return plain.forward_tiles_plain(n_chunks, tile_ids, attrs_tiled, th,
-                                         tw, k_tile, k_chunk, n_tx, cfg)
+                                         tw, k_tile, k_chunk, n_tx, cfg,
+                                         early_exit)
     _check_geometry(th, tw, k_tile, k_chunk)
     n_tiles = attrs_tiled.shape[0]
     _check(n_chunks, "n_chunks", torch.int32, (n_tiles,))
@@ -119,7 +98,8 @@ def forward_tiles(n_chunks, tile_ids, attrs_tiled, th, tw, k_tile, k_chunk,
                       device=attrs_tiled.device)
     _launch("composite_fwd", _ptr(n_chunks), _ptr(tile_ids),
             _ptr(attrs_tiled), _ptr(out), n_tiles, th, tw, k_tile, k_chunk,
-            n_tx, cfg.alpha_clip, cfg.alpha_threshold, _stream(out))
+            n_tx, cfg.alpha_clip, cfg.alpha_threshold, int(early_exit),
+            _stream(out))
     return out
 
 
@@ -152,11 +132,12 @@ def backward_tiles(chunks_done, tile_ids, attrs_tiled, fwd_stack, grad_stack,
 class _CompositeTiles(torch.autograd.Function):
     """K2 forward with K3 as its backward (the JAX `_composite_pallas`
     custom VJP): the backward replays the chunk count the forward recorded
-    in row 6 of its output."""
+    in row 6 of its output, with or without the early exit."""
 
     @staticmethod
-    def forward(ctx, attrs_tiled, n_chunks, tile_ids, geom):
-        stack = forward_tiles(n_chunks, tile_ids, attrs_tiled, *geom)
+    def forward(ctx, attrs_tiled, n_chunks, tile_ids, geom, early_exit=True):
+        stack = forward_tiles(n_chunks, tile_ids, attrs_tiled, *geom,
+                              early_exit=early_exit)
         ctx.save_for_backward(attrs_tiled, tile_ids, stack)
         ctx.geom = geom
         return stack
@@ -167,7 +148,7 @@ class _CompositeTiles(torch.autograd.Function):
         chunks_done = stack[:, plain.ROW_DONE, 0].to(torch.int32).contiguous()
         dattrs = backward_tiles(chunks_done, tile_ids, attrs_tiled, stack,
                                 g.contiguous(), *ctx.geom)
-        return dattrs, None, None, None
+        return dattrs, None, None, None, None
 
 
 def _pack_attrs(proj: ProjectedGaussians, colors, opacities) -> torch.Tensor:
@@ -203,9 +184,11 @@ def rasterize_cuda(
     bins: Optional[TileBins] = None,
     k_tile: Optional[int] = None,
     k_chunk: int = 64,
+    early_exit: bool = True,
     tile_shards: int = 0,
 ) -> RenderOutput:
-    """Render through the tile kernels (their plain versions on the CPU)."""
+    """Render through the tile kernels (their plain versions on the CPU).
+    ``early_exit=False`` turns off the forward's tile-wide exit."""
     if tile_shards > 1:
         raise NotImplementedError(
             "tile_shards > 1 (sharded compositing) is not ported yet: "
@@ -236,7 +219,8 @@ def rasterize_cuda(
     # (n_tiles, k_tile, 16); the backward of this index is a scatter-add
     attrs_tiled = attrs[gidx]
     stack = _CompositeTiles.apply(attrs_tiled, n_chunks, tile_ids,
-                                  (th, tw, k_tile, k_chunk, n_tx, cfg))
+                                  (th, tw, k_tile, k_chunk, n_tx, cfg),
+                                  early_exit)
 
     def assemble(a):
         a = a.reshape(n_ty, n_tx, th, tw)

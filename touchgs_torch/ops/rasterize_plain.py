@@ -51,17 +51,25 @@ def _pixel_geometry(tile_ids, th, tw, n_tx):
     return px, py, ox, oy
 
 
-def _alpha(a, px, py, ox, oy, cfg: RasterizeConfig):
-    """α per (tile, pixel) for one entry row ``a`` (n_tiles, 16) of each
-    tile, with the intermediates the backward needs."""
-    mx = a[:, MX:MX + 1] - ox
-    my = a[:, MY:MY + 1] - oy
+def _sigma(a, px, py, ox, oy):
+    """σ̃ and dx, dy for attribute rows ``a`` (last axis the 16 columns),
+    in the kernels' order of operations."""
+    mx = a[..., MX:MX + 1] - ox
+    my = a[..., MY:MY + 1] - oy
     dx = px - mx
     dy = py - my
-    sigma = (a[:, CA:CA + 1] * dx * dx + a[:, CC:CC + 1] * dy * dy
-             + a[:, CB:CB + 1] * dx * dy)
+    sigma = (a[..., CA:CA + 1] * dx * dx + a[..., CC:CC + 1] * dy * dy
+             + a[..., CB:CB + 1] * dx * dy)
+    return sigma, dx, dy
+
+
+def _alpha(a, px, py, ox, oy, cfg: RasterizeConfig):
+    """α per (tile, pixel) for one entry row ``a`` (n_tiles, 16) of each
+    tile, with the intermediates the backward needs.  Also takes a chunk
+    of rows (n_tiles, kc, 16) with ``ox``, ``oy`` of shape (n_tiles, 1, 1)."""
+    sigma, dx, dy = _sigma(a, px, py, ox, oy)
     expns = torch.exp2(-sigma)
-    opx = a[:, OP:OP + 1] * expns
+    opx = a[..., OP:OP + 1] * expns
     alpha = torch.clamp(opx, max=cfg.alpha_clip)
     keep = (sigma >= 0) & (alpha >= cfg.alpha_threshold)
     alpha = torch.where(keep, alpha, torch.zeros_like(alpha))
@@ -69,8 +77,11 @@ def _alpha(a, px, py, ox, oy, cfg: RasterizeConfig):
 
 
 def forward_tiles_plain(n_chunks, tile_ids, attrs_tiled, th, tw, k_tile,
-                        k_chunk, n_tx, cfg: RasterizeConfig) -> torch.Tensor:
-    """(n_tiles, 8, npix) stack [R, G, B, D, A, T, chunks_done, 0]."""
+                        k_chunk, n_tx, cfg: RasterizeConfig,
+                        early_exit: bool = True) -> torch.Tensor:
+    """(n_tiles, 8, npix) stack [R, G, B, D, A, T, chunks_done, 0].  With
+    ``early_exit=False`` every chunk up to min(n_chunks, k_tile/k_chunk) is
+    composited and counted."""
     n_tiles = attrs_tiled.shape[0]
     npix = th * tw
     dev = attrs_tiled.device
@@ -84,7 +95,9 @@ def forward_tiles_plain(n_chunks, tile_ids, attrs_tiled, th, tw, k_tile,
     done = torch.zeros((n_tiles,), dtype=torch.int32, device=dev)
     for c in range(int(nch.max()) if n_tiles else 0):
         # two-chunks-stale gate: m2 is the max of T after chunk c − 2
-        live = live & (c < nch) & (m2 > SAT_EPS)
+        live = live & (c < nch)
+        if early_exit:
+            live = live & (m2 > SAT_EPS)
         p = torch.ones_like(T)
         new = list(outs)
         for e in range(k_chunk):
