@@ -67,19 +67,20 @@ def _project(a, dev):
                              RasterizeConfig(), opacities=t(a["opac"]))
 
 
-def saturating_tiles(seed=11):
-    """Large splats over every tile, more opaque from tile to tile: whole
-    tiles saturate after different numbers of chunks, so the two-chunks-
-    stale exit fires and ``chunks_done`` varies.  Returns the (6, 512, 16)
-    attribute table and each tile's entry count."""
+def saturating_tiles(seed=11, th=32, tw=32):
+    """Large splats over every th x tw tile, more opaque from tile to tile:
+    whole tiles saturate after different numbers of chunks, so the two-
+    chunks-stale exit fires and ``chunks_done`` varies.  Returns the
+    (6, 512, 16) attribute table and each tile's entry count."""
     rng = np.random.default_rng(seed)
     at = np.zeros((N_TILES, K_TILE, plain.A), np.float32)
+    scale = np.sqrt(th * tw) / 32             # splat size follows the tile
     for t in range(N_TILES):
         n = 64 * (t + 2)                      # 2..7 chunks of entries
-        ox, oy = (t % N_TX) * 32, (t // N_TX) * 32
-        at[t, :n, plain.MX] = ox + rng.uniform(-8, 40, n)
-        at[t, :n, plain.MY] = oy + rng.uniform(-8, 40, n)
-        sig = rng.uniform(4, 12, n)
+        ox, oy = (t % N_TX) * tw, (t // N_TX) * th
+        at[t, :n, plain.MX] = ox + rng.uniform(-tw / 4, 1.25 * tw, n)
+        at[t, :n, plain.MY] = oy + rng.uniform(-th / 4, 1.25 * th, n)
+        sig = rng.uniform(4, 12, n) * scale
         at[t, :n, plain.CA] = 0.5 * 1.4426950408889634 / sig**2
         at[t, :n, plain.CC] = 0.5 * 1.4426950408889634 / sig**2
         at[t, :n, plain.CB] = rng.uniform(-0.2, 0.2, n) / sig**2
@@ -104,25 +105,34 @@ def _scene_tiles(dev):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["scene", "saturating"])
+@pytest.mark.parametrize("case", ["scene", "saturating", "saturating_16x16",
+                                  "saturating_8x8", "saturating_4x8"])
 def test_cuda_kernels_match_plain(cuda_device, case):
+    """K1 bit-exact; K2's chunks_done and T row equal to the plain
+    version's, rgb/acc 3e-5, depth 3e-4; K3 bit-exact, because the plain
+    version sums in the kernel's order.  The tile sizes take every
+    pixels-per-thread instance of K2 and K3 (4, 4, 2, 1)."""
     dev = cuda_device
+    th, tw = 32, 32
     if case == "scene":
         gidx, gidx_p, at, counts = _scene_tiles(dev)
         assert torch.equal(gidx, gidx_p)
         assert bool((gidx >= N).any())
     else:
-        at_np, counts_np = saturating_tiles()
+        if "_" in case:
+            th, tw = map(int, case.split("_")[1].split("x"))
+        at_np, counts_np = saturating_tiles(th=th, tw=tw)
         at = torch.as_tensor(at_np, device=dev)
         counts = torch.as_tensor(counts_np, device=dev)
     nc = ((counts + K_CHUNK - 1) // K_CHUNK).to(torch.int32)
     tids = torch.arange(N_TILES, dtype=torch.int32, device=dev)
     cfg = RasterizeConfig()
-    args = (nc, tids, at, 32, 32, K_TILE, K_CHUNK, N_TX, cfg)
+    args = (nc, tids, at, th, tw, K_TILE, K_CHUNK, N_TX, cfg)
     fwd = rc.forward_tiles(*args)
     fwd_p = plain.forward_tiles_plain(*args)
     torch.cuda.synchronize()
     assert torch.equal(fwd[:, plain.ROW_DONE], fwd_p[:, plain.ROW_DONE])
+    assert torch.equal(fwd[:, plain.ROW_T], fwd_p[:, plain.ROW_T])
     torch.testing.assert_close(fwd[:, 3], fwd_p[:, 3], atol=3e-4, rtol=0)
     rgba_t = [0, 1, 2, 4, plain.ROW_T]
     torch.testing.assert_close(fwd[:, rgba_t], fwd_p[:, rgba_t], atol=3e-5,
@@ -132,11 +142,15 @@ def test_cuda_kernels_match_plain(cuda_device, case):
         assert bool((done < nc).any()) and len(set(done.tolist())) > 1
     g = torch.randn(fwd.shape, device=dev,
                     generator=torch.Generator(dev).manual_seed(0))
-    bargs = (done, tids, at, fwd, g, 32, 32, K_TILE, K_CHUNK, N_TX, cfg)
+    bargs = (done, tids, at, fwd, g, th, tw, K_TILE, K_CHUNK, N_TX, cfg)
     d = rc.backward_tiles(*bargs)
-    torch.testing.assert_close(d, plain.backward_tiles_plain(*bargs),
-                               atol=1e-5, rtol=1e-4)
+    d_p = plain.backward_tiles_plain(*bargs)
+    torch.cuda.synchronize()
     assert float(d.abs().max()) > 0
+    if not torch.equal(d, d_p):
+        torch.testing.assert_close(d, d_p, atol=1e-5, rtol=1e-4)
+        pytest.fail("K3 is within rtol 1e-4 / atol 1e-5 of its plain "
+                    "version but not bit-exact: the summation orders differ")
 
 
 @pytest.mark.cuda
@@ -212,6 +226,21 @@ def test_trainer_on_card_matches_cpu(cuda_device):
         g = np.array([m[key] for m in logs["cuda"]])
         assert np.isfinite(g).all()
         np.testing.assert_allclose(g, c, rtol=1e-3, err_msg=key)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("npix", [1024, 256, 64, 32])
+def test_composite_launch_shapes(cuda_device, npix):
+    """K2 and K3 run npix / P threads a block with P as the plain version
+    computes it, and keep at least two 32x32 tiles resident per SM."""
+    want = plain.pixels_per_thread(npix)
+    for name, variant in (("composite_fwd", 1), ("composite_fwd", 0),
+                          ("composite_bwd", 0)):
+        info = cuda_build.kernel_info(name, npix, K_CHUNK, variant)
+        assert info["pixels_per_thread"] == want, (name, info)
+        assert info["threads"] == npix // want, (name, info)
+        assert info["blocks_per_sm"] >= (2 if npix == 1024 else 1), (name,
+                                                                      info)
 
 
 @pytest.mark.cuda

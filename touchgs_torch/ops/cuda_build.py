@@ -63,26 +63,28 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build_dir() -> Path:
+def build_dir(src: Path = CSRC) -> Path:
     h = hashlib.sha256(repr((NVCC_FLAGS, EXTRA_FLAGS)).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
+    for p in sorted(src.glob("*.cu*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile every kernel library that is missing; returns the directory."""
-    out_dir = build_dir()
+def build(src: Path = CSRC, names: tuple = KERNELS) -> Path:
+    """Compile every kernel library of ``names`` that is missing, from the
+    sources in ``src`` (the package's own by default); returns the
+    directory."""
+    out_dir = build_dir(src)
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
-    for name in KERNELS:
+    for name in names:
         lib = out_dir / f"lib{name}.so"
         if lib.exists():
             continue
         tmp = out_dir / f"lib{name}.so.{os.getpid()}.tmp"
         cmd = [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o",
-               str(tmp), str(CSRC / f"{name}.cu")]
+               str(tmp), str(src / f"{name}.cu")]
         procs.append((name, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []
@@ -98,40 +100,96 @@ def build() -> Path:
     return out_dir
 
 
-def sass_counts(name: str) -> dict:
-    """{kernel function: Counter of SASS opcodes} of ``lib<name>.so``, from
-    ``cuobjdump -sass`` (static counts: an unrolled loop counts once per
-    copy)."""
+def library(name: str, src: Path = CSRC) -> Path:
+    """``lib<name>.so`` built from ``src``: the package's own sources build
+    all their libraries at once, other sources only ``name``'s."""
+    return build(src, KERNELS if src == CSRC else (name,)) / f"lib{name}.so"
+
+
+def sass(name: str, src: Path = CSRC) -> dict:
+    """{kernel function: [(address, opcode, operands)]} of ``lib<name>.so``
+    built from ``src``, from ``cuobjdump -sass``."""
     from torch.utils.cpp_extension import CUDA_HOME
 
-    lib = build() / f"lib{name}.so"
     out = subprocess.run(
-        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass", str(lib)],
+        [os.path.join(CUDA_HOME, "bin", "cuobjdump"), "-sass",
+         str(library(name, src))],
         capture_output=True, text=True, check=True).stdout
-    counts: dict = {}
+    code: dict = {}
     current = None
     for line in out.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
-            current = counts.setdefault(m.group(1), collections.Counter())
+            current = code.setdefault(m.group(1), [])
             continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
-                     line)
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                     r"([A-Z][\w.]*)([^;]*)", line)
         if m and current is not None:
-            current[m.group(1)] += 1
-    return counts
+            current.append((int(m.group(1), 16), m.group(2), m.group(3)))
+    return code
 
 
-def launcher(name: str):
-    """The ``<name>_launch`` C function, building the libraries if needed."""
-    fn = _launchers.get(name)
+def sass_counts(name: str) -> dict:
+    """{kernel function: Counter of SASS opcodes} of ``lib<name>.so``
+    (static counts: an unrolled loop counts once per copy)."""
+    return {fn: collections.Counter(op for _, op, _ in ins)
+            for fn, ins in sass(name).items()}
+
+
+def sass_loop_counts(name: str, src: Path = CSRC) -> dict:
+    """{kernel function: Counter of the SASS opcodes of its innermost loop
+    that holds every MUFU.EX2 (the compositing kernels' entry loop, one
+    exp2 a pair)}: the body from a backward branch's target to the branch.
+    Functions without such a loop are left out."""
+    loops = {}
+    for fn, ins in sass(name, src).items():
+        marks = [a for a, op, _ in ins if op == "MUFU.EX2"]
+        spans = []
+        for addr, op, rest in ins:
+            m = re.search(r"0x([0-9a-f]+)", rest)
+            if not (marks and op.startswith("BRA") and m):
+                continue
+            target = int(m.group(1), 16)
+            if target <= min(marks) and addr >= max(marks):
+                spans.append((addr - target, target, addr))
+        if spans:
+            _, lo, hi = min(spans)
+            loops[fn] = collections.Counter(op for a, op, _ in ins
+                                            if lo <= a <= hi)
+    return loops
+
+
+def launcher(name: str, src: Path = CSRC):
+    """The ``<name>_launch`` C function, building the libraries if needed;
+    ``src`` other than the package's sources builds and loads those."""
+    fn = _launchers.get((name, src))
     if fn is None:
-        lib = ctypes.CDLL(str(build() / f"lib{name}.so"))
+        lib = ctypes.CDLL(str(library(name, src)))
         fn = getattr(lib, f"{name}_launch")
         fn.argtypes = SIGNATURES[name]
         fn.restype = ctypes.c_int
-        _launchers[name] = fn
+        _launchers[(name, src)] = fn
     return fn
+
+
+INFO_KEYS = ("pixels_per_thread", "threads", "registers", "blocks_per_sm",
+             "shared_bytes")
+
+
+def kernel_info(name: str, npix: int, k_chunk: int, variant: int = 0) -> dict:
+    """Launch shape of a compositing kernel (``composite_fwd`` with
+    ``variant`` its early_exit flag, or ``composite_bwd``) for tiles of
+    ``npix`` pixels: pixels per thread, threads a block, registers a thread,
+    resident blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)
+    and shared bytes a block."""
+    fn = getattr(ctypes.CDLL(str(library(name))), f"{name}_info")
+    fn.argtypes = [_I, _I, _I, _P]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(INFO_KEYS))()
+    err = fn(npix, k_chunk, variant, out)
+    if err != 0:
+        raise RuntimeError(f"{name}_info failed: CUDA error {err}")
+    return dict(zip(INFO_KEYS, out))
 
 
 def on_cuda(*tensors: torch.Tensor) -> bool:
@@ -160,9 +218,10 @@ def stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def call(name: str, *args) -> None:
-    """Run ``<name>_launch``; a nonzero CUDA error raises."""
-    err = launcher(name)(*args)
+def call(name: str, *args, src: Path = CSRC) -> None:
+    """Run ``<name>_launch`` (built from ``src``); a nonzero CUDA error
+    raises."""
+    err = launcher(name, src)(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 

@@ -120,21 +120,39 @@ def forward_tiles_plain(n_chunks, tile_ids, attrs_tiled, th, tw, k_tile,
     return torch.stack(rows, dim=1)
 
 
+def pixels_per_thread(npix: int) -> int:
+    """Pixels each thread of K2 and K3 owns: 4 where npix / 4 threads make
+    whole warps, else 2, else 1 (``csrc/composite_common.cuh``)."""
+    return 4 if npix % 128 == 0 else 2 if npix % 64 == 0 else 1
+
+
 def _block_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last (pixel) axis in the backward kernel's order: within
-    each warp of 32 pixels a halving tree (lane i + lane i+16, then +8, …,
-    the order of its shuffle butterfly), then the warps' partials one after
-    another.  The sums of the backward cancel heavily, so only the same
-    order gives the kernel's result to the last bit."""
-    x = x.reshape(x.shape[:-1] + (-1, 32))
-    while x.shape[-1] > 1:
-        h = x.shape[-1] // 2
-        x = x[..., :h] + x[..., h:]
-    x = x[..., 0]
-    s = x[..., 0]
-    for w in range(1, x.shape[-1]):
-        s = s + x[..., w]
-    return s
+    """Sum over the last (pixel) axis in the backward kernel's order.
+
+    1. Thread q of the S = npix / P threads adds its pixels q, q + S, …,
+       q + (P − 1)·S in that order.
+    2. Within each warp of 32 threads, a halving tree over lane bits 4, 3
+       and 2 (lane i + lane i+16, then +8, then +4: the pairs of the
+       kernel's reduce-scatter steps) leaves four partials, lanes 0..3.
+    3. Those partials are added one after another, warp by warp.
+
+    The sums of the backward cancel heavily, so only the same order gives
+    the kernel's result to the last bit."""
+    npix = x.shape[-1]
+    p = pixels_per_thread(npix)
+    x = x.reshape(x.shape[:-1] + (p, npix // p))
+    s = x[..., 0, :]
+    for j in range(1, p):
+        s = s + x[..., j, :]
+    s = s.reshape(s.shape[:-1] + (-1, 32))
+    while s.shape[-1] > 4:
+        h = s.shape[-1] // 2
+        s = s[..., :h] + s[..., h:]
+    s = s.flatten(-2)
+    out = s[..., 0]
+    for i in range(1, s.shape[-1]):
+        out = out + s[..., i]
+    return out
 
 
 def backward_tiles_plain(chunks_done, tile_ids, attrs_tiled, fwd_stack,
