@@ -11,20 +11,26 @@ Phases (any failure raises, and the script exits nonzero with no result):
    FMAs), K2's and K3's entry loops per (entry, pixel) pair (K3 at most 10
    SHFL per entry and thread), and K2's and K3's pixels per thread,
    threads, registers and resident blocks per SM (at least 2 for 32x32
-   tiles).  Then K4, ``compile_smoke``, against its plain version, exactly.
+   tiles).  Then K4, ``compile_smoke``, against its plain version, exactly;
+   the host cost of each piece of a wrapper call (``host_costs``), and K4
+   timed in turns with ``torch.mul(x, 2.0)``.
 2. Kernels against their plain PyTorch versions at the flagship shapes
    (800x800, 100k Gaussians in a capacity of 131072, SH degree 3; 625 tiles
-   of 32x32, k_tile 512, k_chunk 64): K1 slot lists bit-exact; K2 forward,
-   with its early exit and without, within rgb/acc 3e-5 and depth 3e-4 with
-   equal chunks_done (without the exit: min(n_chunks, k_tile/k_chunk)) and
-   an equal T row; K3 backward within rtol 1e-4 / atol 1e-5 on a seeded
+   of 32x32, k_tile 512, k_chunk 64): K1 slot lists bit-exact, alone and
+   with their rows (``slot_rows``, equal to ``attrs[gidx]``), timed per
+   call, queue-full and on the device beside the ``slot_lists`` +
+   ``attrs[gidx]`` it replaces; K2 forward, with its early exit and
+   without, within rgb/acc 3e-5 and depth 3e-4 with equal chunks_done
+   (without the exit: min(n_chunks, k_tile/k_chunk)) and an equal T row;
+   K3 backward within rtol 1e-4 / atol 1e-5 on a seeded
    random cotangent (it prints whether it is bit-exact, as it should be).
    Median times over CUDA events.  Then a small scene rendered through the
    tile kernels against the dense oracle.
 3. The training path: ``Trainer(scene, cfg).run`` on an in-memory 4-view
    800x800 scene seeded with 100k points (capacity 131072), 5 warm-up and
    20 timed steps, with the launch counters set to 0 just before and read
-   just after; then one lossless ``Trainer.render_view``.
+   just after (25 launches of K1 with rows, K2 and K3, none of K1's lists
+   alone); then one lossless ``Trainer.render_view``.
 4. Where the step's device time goes: three more steps under
    torch.profiler, the kernels by device time and the busy share.
 5. The profiling path: ``python -m touchgs_torch.tools.exp_kernel_anatomy
@@ -36,7 +42,9 @@ Phases (any failure raises, and the script exits nonzero with no result):
    within 3e-5 of each tile's largest output; K6 f32 within 1e-5 and bf16
    within 2^-6 of it.  Median times, the attribution of K2's time, the fp32
    rate alpha_only sustains and f32 against bf16.
-7. One ``kernels`` JSON line (ten entries), then the last line
+7. One ``kernels`` JSON line (eleven entries; ``launches`` from the
+   training path for its kernels, from the anatomy path for the others),
+   then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with status 1 before doing anything.
@@ -73,6 +81,8 @@ PEAK_BYTES = 3.35e12
 FWD_OPS_PER_PAIR = 34
 BWD_OPS_PER_PAIR = 76
 PROFILE_STEPS = 3   # training steps under torch.profiler, after the timed ones
+HOST_CALLS = 10_000  # calls a round of the host-cost table
+K4_CALLS = 200       # CUDA-event medians of K4 and torch.mul
 PROFILE_TOP = 15    # kernels listed by device time
 
 
@@ -241,17 +251,69 @@ def phase_build() -> dict:
     torch.cuda.synchronize()
     check(torch.equal(out, cuda_build.compile_smoke_plain(x)),
           "K4 compile_smoke differs from plain")
-    t = median_ms(lambda: cuda_build.compile_smoke(x), 50)
-    t_plain = median_ms(lambda: cuda_build.compile_smoke_plain(x), 50)
-    t_lib = median_ms(lambda: torch.mul(x, 2.0), 50)
+    host_costs(cuda_build, x)
+
+    def k4():
+        return cuda_build.compile_smoke(x)
+
+    def mul():
+        return torch.mul(x, 2.0)
+
+    # in turns, K4, mul, mul, K4, each a median over CUDA events
+    t = [median_ms(f, K4_CALLS) for f in (k4, mul, mul, k4)]
+    t_k4, t_lib = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    t_plain = median_ms(lambda: cuda_build.compile_smoke_plain(x), K4_CALLS)
+    d_k4, d_lib = device_ms(k4, K4_CALLS), device_ms(mul, K4_CALLS)
     b = bound(2 * x.numel() * 4, fp32_ops=x.numel())
-    print(f"K4 compile_smoke: exact; {t:.4f} ms (plain {t_plain:.4f}, "
-          f"torch.mul {t_lib:.4f})")
+    print(f"K4 compile_smoke: exact; {t_k4:.4f} ms (plain {t_plain:.4f}, "
+          f"torch.mul {t_lib:.4f}; in turns K4, mul, mul, K4: "
+          + ", ".join(f"{v:.4f}" for v in t) + f"); on the device alone "
+          f"{d_k4:.5f} ms, torch.mul {d_lib:.5f}")
     return dict(name="compile_smoke", route="cuda",
                 source="touchgs_torch/csrc/compile_smoke.cu",
-                replaces="bench.py:113", max_abs_err=0.0, ms=t,
+                replaces="bench.py:113", max_abs_err=0.0, ms=t_k4,
                 plain_ms=t_plain, bound_ms=b[0], bound_by=b[1],
-                library_ms=t_lib)
+                library_ms=t_lib, device_ms=d_k4, library_device_ms=d_lib)
+
+
+def host_costs(cuda_build, x, calls: int = HOST_CALLS,
+               rounds: int = 3) -> None:
+    """Host ns per call of each piece of a kernel wrapper's work on K4's
+    input ``x``: ``perf_counter_ns`` around ``calls`` calls with no
+    synchronisation in the loop, the median of ``rounds`` rounds.  The
+    pieces of the launch path, then two whole calls: the K4 wrapper and
+    ``torch.mul(x, 2.0)``.  The rows that launch K4 queue ``calls`` launches
+    without waiting for them."""
+    fn = cuda_build.launcher("compile_smoke")
+    out = torch.empty_like(x)
+    n, shape = x.numel(), tuple(x.shape)
+    xp, op, s = x.data_ptr(), out.data_ptr(), cuda_build.current_stream()
+    pieces = [
+        ("empty loop", lambda: None),
+        ("on_cuda", lambda: cuda_build.on_cuda(x)),
+        ("check_tensor", lambda: cuda_build.check_tensor(
+            x, "x", torch.float32, shape)),
+        ("torch.empty_like", lambda: torch.empty_like(x)),
+        ("data_ptr()", x.data_ptr),
+        ("current_stream: raw handle", cuda_build.current_stream),
+        ("launcher lookup", lambda: cuda_build.launcher("compile_smoke")),
+        ("ctypes call with the launch", lambda: fn(xp, op, n, s)),
+        ("ctypes call, n = 0, no launch", lambda: fn(xp, op, 0, s)),
+        ("compile_smoke wrapper, whole", lambda: cuda_build.compile_smoke(
+            x)),
+        ("torch.mul(x, 2.0), whole", lambda: torch.mul(x, 2.0)),
+    ]
+    print(f"host ns per call, median of {rounds} rounds of {calls} calls:")
+    for name, f in pieces:
+        ns = []
+        for _ in range(rounds):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter_ns()
+            for _ in range(calls):
+                f()
+            ns.append((time.perf_counter_ns() - t0) / calls)
+        torch.cuda.synchronize()
+        print(f"  {name:32s} {np.median(ns):9.1f}")
 
 
 def flagship_inputs(dev):
@@ -314,21 +376,39 @@ def phase_kernels(dev) -> list:
     print(f"flagship: {int(x['bins'].tile_counts.numel())} tiles, "
           f"{total_pairs} pairs, {live_slots} live slots (k_tile {k_tile})")
 
-    # K1
+    # K1, the lists alone and with their rows
+    k1_args = (sg, starts, capped, n_tiles, k_tile, x["N"])
+    attrs = x["attrs"]
+
     def k1():
-        return rc.slot_lists(sg, starts, capped, n_tiles, k_tile, x["N"])
+        return rc.slot_lists(*k1_args)
 
     def k1_plain():
-        return plain.slot_lists_plain(sg, starts, capped, n_tiles, k_tile,
-                                      x["N"])
+        return plain.slot_lists_plain(*k1_args)
+
+    def k1r():
+        return rc.slot_rows(attrs, *k1_args)
+
+    def k1r_plain():
+        return plain.slot_rows_plain(attrs, *k1_args)
+
+    def k1_pair():  # what K1 with rows replaces: the lists, then a gather
+        return attrs[rc.slot_lists(*k1_args)]
 
     gidx, gidx_p = k1(), k1_plain()
+    (gidx_r, attrs_tiled), (_, rows_p) = k1r(), k1r_plain()
     torch.cuda.synchronize()
     check(torch.equal(gidx, gidx_p), "K1 slot lists differ from plain")
+    check(torch.equal(gidx_r, gidx_p) and torch.equal(attrs_tiled, rows_p)
+          and torch.equal(attrs_tiled, k1_pair()),
+          "K1 with rows differs from plain")
     k1_err = float((gidx - gidx_p).abs().max())
+    k1r_err = float((attrs_tiled - rows_p).abs().max())
+    distinct = int(torch.unique(gidx).numel())
+    print(f"K1 with rows: gidx and rows equal to plain and to "
+          f"attrs[gidx]; {distinct} distinct rows")
 
     # K2
-    attrs_tiled = x["attrs"][gidx].contiguous()
     nc, tids = x["n_chunks"], x["tile_ids"]
 
     def k2():
@@ -384,11 +464,33 @@ def phase_kernels(dev) -> list:
     check(not bool(bad.any()), "K3 outside tolerance")
 
     t_k1, t_k1p = median_ms(k1, 50), median_ms(k1_plain, 10)
+    t_k1r, t_k1rp = median_ms(k1r, 50), median_ms(k1r_plain, 10)
+    t_pair = median_ms(k1_pair, 50)
+    tb = [batched_ms(f, 20) for f in (k1r, k1_pair, k1_pair, k1r)]
+    tb_k1r, tb_pair = (tb[0] + tb[3]) / 2, (tb[1] + tb[2]) / 2
+    dev_k1r, dev_pair = device_ms(k1r), device_ms(k1_pair)
     t_k2, t_k2p = median_ms(k2, 20), median_ms(k2_plain, 2, warmup=0)
     t_k3, t_k3p = median_ms(k3, 20), median_ms(k3_plain, 2, warmup=0)
 
     stack_bytes = n_tiles * plain.ROWS * npix * 4
     b1 = bound(4 * (2 * n_tiles + live_slots + n_tiles * k_tile))
+    # with rows: each input read once (the distinct rows the lists name),
+    # each output written once
+    row_bytes = plain.A * 4
+    slots = n_tiles * k_tile
+    b1r = bound(4 * (2 * n_tiles + live_slots + slots)
+                + row_bytes * (distinct + slots))
+    per_slot = bound(4 * (2 * n_tiles + live_slots + slots)
+                     + 2 * row_bytes * slots)
+    print(f"K1 with rows: {t_k1r:.4f} ms per call, {tb_k1r:.4f} ms queue-"
+          f"full (plain {t_k1rp:.3f}); the pair slot_lists + attrs[gidx] "
+          f"{t_pair:.4f} per call, {tb_pair:.4f} queue-full; in turns K1r, "
+          f"pair, pair, K1r: " + ", ".join(f"{v:.4f}" for v in tb))
+    print(f"K1 with rows device time (profiler): {dev_k1r:.4f} ms, the "
+          f"pair's {dev_pair:.4f} ms")
+    print(f"K1 with rows bound: {b1r[0]:.5f} ms ({distinct} distinct rows "
+          f"read once), {100 * b1r[0] / dev_k1r:.1f}% of its device time; "
+          f"{per_slot[0]:.5f} ms with a row read per slot")
     b2 = bound(scanned * plain.A * 4 + 8 * n_tiles + stack_bytes,
                fp32_ops=scanned * npix * FWD_OPS_PER_PAIR)
     b3 = bound(scanned * plain.A * 4 + 8 * n_tiles + 2 * stack_bytes
@@ -400,6 +502,15 @@ def phase_kernels(dev) -> list:
              replaces="touchgs_tpu/ops/rasterize_pallas.py:468",
              max_abs_err=k1_err, ms=t_k1, plain_ms=t_k1p, bound_ms=b1[0],
              bound_by=b1[1], library_ms=None),
+        dict(name="slot_rows", route="cuda",
+             source="touchgs_torch/csrc/slot_lists.cu",
+             replaces="touchgs_tpu/ops/rasterize_pallas.py:468",
+             max_abs_err=k1r_err, ms=t_k1r, plain_ms=t_k1rp, bound_ms=b1r[0],
+             bound_by=b1r[1], library_ms=t_pair, batched_ms=tb_k1r,
+             library_batched_ms=tb_pair, device_ms=dev_k1r,
+             library_device_ms=dev_pair,
+             library_note="rc.slot_lists then attrs[gidx], the path K1 with "
+             "rows replaces"),
         dict(name="composite_fwd", route="cuda",
              source="touchgs_torch/csrc/composite_fwd.cu",
              replaces="touchgs_tpu/ops/rasterize_pallas.py:500",
@@ -585,8 +696,9 @@ def phase_train(card: str):
     check(all(np.isfinite(losses)) and np.isfinite(first["loss"]),
           "non-finite loss")
     n_steps = WARMUP_STEPS + TIMED_STEPS
-    check(all(v == n_steps for v in counts.values()),
-          f"launch counts {counts}, want {n_steps} each")
+    # K1 with rows takes the place of K1's lists and PyTorch's gather
+    want = {k: 0 if k == "slot_lists" else n_steps for k in counts}
+    check(counts == want, f"launch counts {counts}, want {want}")
 
     out = trainer.render_view(0)
     torch.cuda.synchronize()
@@ -758,6 +870,35 @@ def batched_ms(fn, calls: int, batches: int = 5) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, calls: int = 20) -> float:
+    """Device time per call of the kernels ``fn`` launches, from
+    torch.profiler over ``calls`` calls: for each kernel its mean time per
+    recorded launch times its launches per call (the profiler may drop a
+    launch's record), summed.  Unlike ``batched_ms`` it leaves out the idle
+    gaps of a queue the host cannot keep full; the kernels are printed with
+    their times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    total = 0.0
+    for e in kernels:
+        per_call = max(1, round(e.count / calls))
+        ms = e.device_time_total / e.count / 1e3 * per_call
+        total += ms
+        print(f"    {ms:.5f} ms a call, {per_call}x ({e.count} launches "
+              f"recorded)  {e.key[:80]}")
+    return total
+
+
 def phase_ab(dev, old, rounds: int = 20) -> None:
     """K2 and K3 of this tree against the same two kernels built from the
     sources in the directory ``old`` (an earlier commit's
@@ -775,17 +916,18 @@ def phase_ab(dev, old, rounds: int = 20) -> None:
     geom = (x["th"], x["tw"], x["k_tile"], x["k_chunk"], x["n_tx"], x["rcfg"])
     th, tw, k_tile, k_chunk, n_tx, cfg = geom
     n_tiles, nc, tids = x["n_tiles"], x["n_chunks"], x["tile_ids"]
-    gidx = rc.slot_lists(x["bins"].sorted_gauss, x["bins"].tile_starts,
-                         x["capped"], n_tiles, k_tile, x["N"])
-    at = x["attrs"][gidx].contiguous()
+    _, at = rc.slot_rows(x["attrs"], x["bins"].sorted_gauss,
+                         x["bins"].tile_starts, x["capped"], n_tiles, k_tile,
+                         x["N"])
     stack_shape = (n_tiles, plain.ROWS, th * tw)
     tail = (n_tiles, th, tw, k_tile, k_chunk, n_tx, cfg.alpha_clip,
             cfg.alpha_threshold)
 
     def old_fwd():
         out = torch.empty(stack_shape, device=dev)
-        cb.call("composite_fwd", cb.ptr(nc), cb.ptr(tids), cb.ptr(at),
-                cb.ptr(out), *tail, 1, cb.stream(out), src=old)
+        cb.call("composite_fwd", nc.data_ptr(), tids.data_ptr(),
+                at.data_ptr(), out.data_ptr(), *tail, 1, cb.current_stream(),
+                src=old)
         return out
 
     def new_fwd():
@@ -807,9 +949,9 @@ def phase_ab(dev, old, rounds: int = 20) -> None:
 
     def old_bwd():
         out = torch.empty_like(at)
-        cb.call("composite_bwd", cb.ptr(done), cb.ptr(tids), cb.ptr(at),
-                cb.ptr(f_new), cb.ptr(g), cb.ptr(out), *tail,
-                cb.stream(out), src=old)
+        cb.call("composite_bwd", done.data_ptr(), tids.data_ptr(),
+                at.data_ptr(), f_new.data_ptr(), g.data_ptr(),
+                out.data_ptr(), *tail, cb.current_stream(), src=old)
         return out
 
     def new_bwd():
@@ -866,12 +1008,14 @@ def main() -> int:
     phase_profile(trainer)
     del trainer
     torch.cuda.empty_cache()
-    for k in kernels:
-        k["launches"] = counts[k["name"]]
     path_counts, x, probe = phase_anatomy_path()
     kernels += [k4] + phase_anatomy(x, probe)
-    for k in kernels[3:]:
-        k["launches"] = path_counts[k["name"]]
+    # a kernel of the training path counts its launches there, any other
+    # (K1's lists alone, K4-K6) on the anatomy path
+    for k in kernels:
+        main_path = counts.get(k["name"], 0) > 0
+        k["path"] = "train" if main_path else "anatomy"
+        k["launches"] = (counts if main_path else path_counts)[k["name"]]
     print(f"chip_smoke: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -91,17 +91,47 @@ def saturating_tiles(seed=11, th=32, tw=32):
     return at, counts
 
 
+def synthetic_slots(k_tile, seed=7, n=1000):
+    """K1's inputs for six tiles, as numpy: two empty tiles, a short one,
+    one of exactly k_tile entries and two with more than k_tile, which the
+    lists cap.  Every row of the (n + 512, 16) table is random, the dead
+    rows too, so a row copied from the wrong place shows.  Returns (attrs,
+    sorted_gauss, starts, capped counts, n)."""
+    rng = np.random.default_rng(seed)
+    counts = np.array([0, 5, k_tile, k_tile + 77, 3 * k_tile // 2, 0],
+                      np.int32)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32)
+    sorted_gauss = rng.integers(0, n, int(counts.sum()), dtype=np.int32)
+    attrs = rng.normal(size=(n + plain.DEAD_SPREAD, plain.A)).astype(
+        np.float32)
+    return (attrs, sorted_gauss, starts,
+            np.minimum(counts, k_tile).astype(np.int32), n)
+
+
+def _slot_case(case, k_tile, dev):
+    """K1's arguments for ``rc.slot_rows`` on ``dev``: the scene's tiles
+    through the port's projection and binning, or ``synthetic_slots``."""
+    if case == "scene":
+        a = scene_arrays()
+        proj = _project(a, dev)
+        bins = bin_gaussians(proj, W, H, RasterizeConfig())
+        attrs = rc._pack_attrs(proj, torch.as_tensor(a["colors"], device=dev),
+                               torch.as_tensor(a["opac"], device=dev))
+        capped = torch.clamp(bins.tile_counts, max=k_tile).contiguous()
+        return (attrs, bins.sorted_gauss, bins.tile_starts, capped, N_TILES,
+                k_tile, N)
+    attrs, sg, starts, capped, n = synthetic_slots(k_tile)
+    return (*(torch.as_tensor(v, device=dev)
+              for v in (attrs, sg, starts, capped)), len(starts), k_tile, n)
+
+
 def _scene_tiles(dev):
-    """K1 on the card and its plain version, and the scene's tile table."""
-    a = scene_arrays()
-    proj = _project(a, dev)
-    bins = bin_gaussians(proj, W, H, RasterizeConfig())
-    capped = torch.clamp(bins.tile_counts, max=K_TILE).contiguous()
-    args = (bins.sorted_gauss, bins.tile_starts, capped, N_TILES, K_TILE, N)
+    """K1's lists on the card and their plain version, and the scene's tile
+    table gathered through them."""
+    attrs, *args = _slot_case("scene", K_TILE, dev)
     gidx = rc.slot_lists(*args)
-    attrs = rc._pack_attrs(proj, torch.as_tensor(a["colors"], device=dev),
-                           torch.as_tensor(a["opac"], device=dev))
-    return gidx, plain.slot_lists_plain(*args), attrs[gidx].contiguous(), capped
+    return (gidx, plain.slot_lists_plain(*args), attrs[gidx].contiguous(),
+            args[2])
 
 
 @pytest.mark.cuda
@@ -187,7 +217,8 @@ def test_rasterize_cuda_on_card_matches_cpu(cuda_device):
 @pytest.mark.cuda
 def test_trainer_on_card_matches_cpu(cuda_device):
     """Three steps of ``Trainer.run`` with the default device (the card)
-    against the same steps on the CPU; every step launches K1-K3 once."""
+    against the same steps on the CPU; every step launches K1 with rows,
+    K2 and K3 once, and K1 without rows never."""
     rng = np.random.default_rng(0)
     n_views = 2
     c2w = np.stack([look_at_c2w((2.0 * np.cos(t), 0.6, 2.0 * np.sin(t)))
@@ -219,8 +250,8 @@ def test_trainer_on_card_matches_cpu(cuda_device):
         trainer.run(steps, log_fn=log.append)
         logs[trainer.device.type] = log
         counts = dict(rc.launches)
-        assert counts == {k: (steps if device is None else 0)
-                          for k in counts}, counts
+        assert counts == {k: (steps if device is None and k != "slot_lists"
+                              else 0) for k in counts}, counts
     for key in ("loss", "psnr"):
         c = np.array([m[key] for m in logs["cpu"]])
         g = np.array([m[key] for m in logs["cuda"]])
@@ -241,6 +272,124 @@ def test_composite_launch_shapes(cuda_device, npix):
         assert info["threads"] == npix // want, (name, info)
         assert info["blocks_per_sm"] >= (2 if npix == 1024 else 1), (name,
                                                                       info)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_tile", [128, 512, 8192])
+@pytest.mark.parametrize("case", ["scene", "saturating"])
+def test_slot_rows_matches_plain(cuda_device, case, k_tile):
+    """K1 with rows equal to its plain version (``slot_lists_plain``, then
+    ``attrs[gidx]``) on both outputs, and K1 without rows equal to the same
+    lists; each call counts one launch under its own name."""
+    args = _slot_case(case, k_tile, cuda_device)
+    before = dict(rc.launches)
+    gidx, rows = rc.slot_rows(*args)
+    gidx_alone = rc.slot_lists(*args[1:])
+    gidx_p, rows_p = plain.slot_rows_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(gidx, gidx_p) and torch.equal(gidx_alone, gidx_p)
+    assert torch.equal(rows, rows_p)
+    assert rows.shape == (args[4], k_tile, plain.A)
+    assert bool((gidx >= args[6]).any())          # dead slots were copied
+    assert rc.launches["slot_rows"] == before["slot_rows"] + 1
+    assert rc.launches["slot_lists"] == before["slot_lists"] + 1
+
+
+@pytest.mark.cuda
+def test_rasterize_cuda_gradients_equal_gather_path(cuda_device,
+                                                    monkeypatch):
+    """``rasterize_cuda`` through K1 with rows against the same render with
+    K1's lists gathered by ``attrs[gidx]``, as the tiles were read before
+    K1 wrote the rows: equal outputs and gradients, and one K1 launch a
+    render."""
+    a = scene_arrays()
+    dev = cuda_device
+    bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
+
+    def render():
+        proj = _project(a, dev)
+        off = torch.zeros((N, 2), device=dev, requires_grad=True)
+        cols = torch.tensor(a["colors"], device=dev, requires_grad=True)
+        op = torch.tensor(a["opac"], device=dev, requires_grad=True)
+        out = rc.rasterize_cuda(proj._replace(means2d=proj.means2d + off),
+                                cols, op, W, H, RasterizeConfig(),
+                                background=bg)
+        loss = (torch.mean((out.rgb - 0.25) ** 2) + 0.3 * torch.mean(out.depth)
+                + 0.1 * torch.mean(out.acc))
+        return [out.rgb, out.acc, out.depth,
+                *torch.autograd.grad(loss, (off, cols, op))]
+
+    before = dict(rc.launches)
+    new = render()
+    torch.cuda.synchronize()
+    assert rc.launches["slot_rows"] == before["slot_rows"] + 1
+    assert rc.launches["slot_lists"] == before["slot_lists"]
+
+    def gather(attrs, sorted_gauss, starts, counts, n_tiles, k_tile, dead):
+        gidx = rc.slot_lists(sorted_gauss, starts, counts, n_tiles, k_tile,
+                             dead)
+        return attrs[gidx], gidx
+
+    monkeypatch.setattr(rc._SlotRows, "apply", gather)
+    old = render()
+    torch.cuda.synchronize()
+    assert float(new[3].abs().max()) > 0
+    for x, y in zip(new, old):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_launch_stream_is_torchs_current(cuda_device):
+    """The launch path's raw stream handle is PyTorch's current stream, on
+    the default stream and inside ``torch.cuda.stream``, where K4 then
+    runs."""
+    assert (cuda_build.current_stream()
+            == torch.cuda.current_stream().cuda_stream)
+    side = torch.cuda.Stream()
+    x = torch.ones((8, 128), device=cuda_device)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert cuda_build.current_stream() == side.cuda_stream
+        out = cuda_build.compile_smoke(x)
+    side.synchronize()
+    assert torch.equal(out, torch.full_like(x, 2.0))
+
+
+@pytest.mark.cuda
+def test_wrappers_check_tensors_on_card(cuda_device):
+    """On the card each wrapper checks dtype, shape and layout and raises
+    before it launches."""
+    i32 = torch.zeros(8, dtype=torch.int32, device=cuda_device)
+    attrs = torch.zeros((552, 16), device=cuda_device)
+    bad = {
+        "sorted_gauss: want contiguous torch.int32": lambda: rc.slot_lists(
+            i32.long(), i32, i32, 8, 128, 0),
+        r"attrs: want .* \(552, 16\)": lambda: rc.slot_rows(
+            attrs[:-1], i32, i32, i32, 8, 128, 40),
+        "counts: want .* got non-contiguous": lambda: rc.slot_rows(
+            attrs, i32, i32, torch.zeros(16, dtype=torch.int32,
+                                         device=cuda_device)[::2], 8, 128,
+            40),
+        "x: want contiguous torch.float32": lambda: cuda_build.compile_smoke(
+            attrs.double()),
+    }
+    before = {**rc.launches, **cuda_build.launches}
+    for match, call in bad.items():
+        with pytest.raises(ValueError, match=match):
+            call()
+    assert before == {**rc.launches, **cuda_build.launches}
+
+
+@pytest.mark.cuda
+def test_compile_smoke_odd_shape(cuda_device):
+    """K4 on a shape that fills no whole block or warp, and on a view 4
+    bytes past an aligned address."""
+    base = torch.arange(1 + 3 * 77, dtype=torch.float32,
+                        device=cuda_device) - 100.5
+    for x in (base[:-1].reshape(3, 77), base[1:].reshape(3, 77)):
+        out = cuda_build.compile_smoke(x)
+        torch.cuda.synchronize()
+        assert torch.equal(out, cuda_build.compile_smoke_plain(x))
 
 
 @pytest.mark.cuda

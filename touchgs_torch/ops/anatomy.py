@@ -22,7 +22,7 @@ import torch
 from touchgs_torch.config import RasterizeConfig
 from touchgs_torch.ops import cuda_build
 from touchgs_torch.ops import rasterize_plain as plain
-from touchgs_torch.ops.cuda_build import check_tensor, on_cuda, ptr, stream
+from touchgs_torch.ops.cuda_build import check_tensor, current_stream, on_cuda
 from touchgs_torch.ops.rasterize_cuda import _check_geometry
 
 MODES = ("full", "no_mxu", "alpha_only", "noexp")
@@ -97,11 +97,13 @@ def variant(mode: str, n_chunks, tile_ids, attrs_tiled, th, tw, k_tile,
     # `full` stores its R, G, B, D rows here, so they stay in the code
     scratch = (torch.empty((n_tiles, 4, npix), dtype=torch.float32,
                            device=out.device) if mode == "full" else None)
-    cuda_build.call("anatomy_variants", ptr(n_chunks), ptr(tile_ids),
-                    ptr(attrs_tiled), ptr(out),
-                    None if scratch is None else ptr(scratch),
+    cuda_build.call("anatomy_variants", n_chunks.data_ptr(),
+                    tile_ids.data_ptr(), attrs_tiled.data_ptr(),
+                    out.data_ptr(),
+                    None if scratch is None else scratch.data_ptr(),
                     MODES.index(mode), n_tiles, th, tw, k_tile, k_chunk,
-                    n_tx, cfg.alpha_clip, cfg.alpha_threshold, stream(out))
+                    n_tx, cfg.alpha_clip, cfg.alpha_threshold,
+                    current_stream())
     launches[f"anatomy_{mode}"] += 1
     return out
 
@@ -142,7 +144,7 @@ def bf16_probe(attrs: torch.Tensor) -> torch.Tensor:
                  (n_tiles, PROBE_ROWS, PROBE_COLS))
     out = torch.empty((n_tiles, 1, PROBE_NPIX), dtype=torch.float32,
                       device=attrs.device)
-    cuda_build.call("bf16_probe", ptr(attrs), ptr(out), int(leg == "bf16"),
-                    n_tiles, stream(out))
+    cuda_build.call("bf16_probe", attrs.data_ptr(), out.data_ptr(),
+                    int(leg == "bf16"), n_tiles, current_stream())
     launches[f"bf16_probe_{leg}"] += 1
     return out

@@ -7,8 +7,9 @@ together, into ``csrc/build/<hash of the sources and flags>/``, so a changed
 source rebuilds and an unchanged one is reused.  Nothing is built on import.
 
 Beside the build: the helpers every kernel wrapper uses (device dispatch,
-argument checks, pointers, the launch itself), and ``compile_smoke``, the
-build-and-launch check (port of ``bench.py::pallas_compile_smoke``).
+argument checks, the raw handle of the current stream, the launch itself),
+and ``compile_smoke``, the build-and-launch check (port of
+``bench.py::pallas_compile_smoke``).
 """
 from __future__ import annotations
 
@@ -37,7 +38,9 @@ EXTRA_FLAGS = {"composite_bwd": ("-fmad=false",)}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # launcher argument types: pointers and the stream as c_void_p
 SIGNATURES = {
-    "slot_lists": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # sorted_gauss, starts, counts, attrs (or null), gidx, rows (or null);
+    # n_tiles, k_tile, dead; stream
+    "slot_lists": [_P] * 6 + [_I] * 3 + [_P],
     "composite_fwd": [_P, _P, _P, _P] + [_I] * 6 + [_F, _F, _I, _P],
     "composite_bwd": [_P] * 6 + [_I] * 6 + [_F, _F, _P],
     "compile_smoke": [_P, _P, _I, _P],
@@ -205,22 +208,21 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
 
 def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype,
                  shape: tuple) -> None:
-    if t.dtype != dtype or tuple(t.shape) != shape or not t.is_contiguous():
-        raise ValueError(f"{name}: want contiguous {dtype} {shape}, got "
-                         f"{t.dtype} {tuple(t.shape)}")
+    if t.dtype != dtype or t.shape != shape or not t.is_contiguous():
+        layout = "" if t.is_contiguous() else "non-contiguous "
+        raise ValueError(f"{name}: want contiguous {dtype} {tuple(shape)}, "
+                         f"got {layout}{t.dtype} {tuple(t.shape)}")
 
 
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+def current_stream() -> int:
+    """The raw handle of the current CUDA device's current stream, read
+    without building a ``torch.cuda.Stream`` (-1: the current device)."""
+    return torch._C._cuda_getCurrentRawStream(-1)
 
 
 def call(name: str, *args, src: Path = CSRC) -> None:
-    """Run ``<name>_launch`` (built from ``src``); a nonzero CUDA error
-    raises."""
+    """Run ``<name>_launch`` (built from ``src``) with ``args``: pointers
+    as ints, the stream last; a nonzero CUDA error raises."""
     err = launcher(name, src)(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
@@ -240,6 +242,7 @@ def compile_smoke(x: Optional[torch.Tensor] = None) -> torch.Tensor:
         return compile_smoke_plain(x)
     check_tensor(x, "x", torch.float32, tuple(x.shape))
     out = torch.empty_like(x)
-    call("compile_smoke", ptr(x), ptr(out), x.numel(), stream(out))
+    call("compile_smoke", x.data_ptr(), out.data_ptr(), x.numel(),
+         current_stream())
     launches["compile_smoke"] += 1
     return out

@@ -3,12 +3,13 @@ backward (port of ``touchgs_tpu/ops/rasterize_pallas.py``).
 
 Division of labour, as in the JAX package:
 
-- **PyTorch**: projection, binning (``ops.tiles``), attribute packing and
-  the per-tile gather ``attrs[gidx]`` into a dense ``(n_tiles, k_tile, 16)``
-  tensor.  The gather is a plain index, so its backward is PyTorch's
-  scatter-add and the kernels stay free of atomics.
-- **K1** ``slot_lists`` (``csrc/slot_lists.cu``): the front-packed per-tile
-  lists ``gidx``.
+- **PyTorch**: projection, binning (``ops.tiles``), attribute packing, and
+  the backward of the per-tile gather, PyTorch's scatter-add, so the
+  kernels stay free of atomics.
+- **K1** ``slot_rows`` (``csrc/slot_lists.cu``): the front-packed per-tile
+  lists ``gidx`` and, in the same pass, the dense ``(n_tiles, k_tile, 16)``
+  attribute rows ``attrs[gidx]`` the compositing kernels read.
+  ``slot_lists`` is the same kernel writing ``gidx`` alone.
 - **K2** ``forward_tiles`` (``csrc/composite_fwd.cu``): front-to-back
   compositing of each 32x32 tile with the two-chunks-stale tile-wide exit;
   row 6 of its output records the chunks composited.
@@ -34,8 +35,6 @@ from touchgs_torch.ops import cuda_build
 from touchgs_torch.ops import rasterize_plain as plain
 from touchgs_torch.ops.cuda_build import check_tensor as _check
 from touchgs_torch.ops.cuda_build import on_cuda as _on_cuda
-from touchgs_torch.ops.cuda_build import ptr as _ptr
-from touchgs_torch.ops.cuda_build import stream as _stream
 from touchgs_torch.ops.projection import ProjectedGaussians
 from touchgs_torch.ops.rasterize_ref import RenderOutput
 from touchgs_torch.ops.tiles import TileBins, bin_gaussians
@@ -44,12 +43,14 @@ _LOG2E = 1.4426950408889634
 _DMA_ALIGN = 128  # k_tile stays a multiple of this, as in the JAX package
 
 # kernel launches by wrapper; only a launch of the CUDA kernel counts
-launches = {"slot_lists": 0, "composite_fwd": 0, "composite_bwd": 0}
+launches = {"slot_lists": 0, "slot_rows": 0, "composite_fwd": 0,
+            "composite_bwd": 0}
 
 
-def _launch(name: str, *args) -> None:
-    cuda_build.call(name, *args)
-    launches[name] += 1
+def _launch(name: str, key: str, *args) -> None:
+    """Launch ``<name>_launch`` on the current stream; count it as ``key``."""
+    cuda_build.call(name, *args, cuda_build.current_stream())
+    launches[key] += 1
 
 
 def _check_geometry(th, tw, k_tile, k_chunk):
@@ -62,6 +63,12 @@ def _check_geometry(th, tw, k_tile, k_chunk):
                          f"k_chunk={k_chunk}")
 
 
+def _check_lists(sorted_gauss, tile_starts, counts, n_tiles):
+    _check(sorted_gauss, "sorted_gauss", torch.int32, (sorted_gauss.shape[0],))
+    _check(tile_starts, "tile_starts", torch.int32, (n_tiles,))
+    _check(counts, "counts", torch.int32, (n_tiles,))
+
+
 def slot_lists(sorted_gauss, tile_starts, counts, n_tiles: int, k_tile: int,
                dead: int) -> torch.Tensor:
     """K1: (n_tiles, k_tile) int32 front-packed per-tile lists; ``counts``
@@ -69,14 +76,64 @@ def slot_lists(sorted_gauss, tile_starts, counts, n_tiles: int, k_tile: int,
     if not _on_cuda(sorted_gauss, tile_starts, counts):
         return plain.slot_lists_plain(sorted_gauss, tile_starts, counts,
                                       n_tiles, k_tile, dead)
-    _check(sorted_gauss, "sorted_gauss", torch.int32, (sorted_gauss.shape[0],))
-    _check(tile_starts, "tile_starts", torch.int32, (n_tiles,))
-    _check(counts, "counts", torch.int32, (n_tiles,))
+    _check_lists(sorted_gauss, tile_starts, counts, n_tiles)
     out = torch.empty((n_tiles, k_tile), dtype=torch.int32,
                       device=sorted_gauss.device)
-    _launch("slot_lists", _ptr(sorted_gauss), _ptr(tile_starts), _ptr(counts),
-            _ptr(out), n_tiles, k_tile, dead, _stream(out))
+    _launch("slot_lists", "slot_lists", sorted_gauss.data_ptr(),
+            tile_starts.data_ptr(), counts.data_ptr(), None, out.data_ptr(),
+            None, n_tiles, k_tile, dead)
     return out
+
+
+def slot_rows(attrs, sorted_gauss, tile_starts, counts, n_tiles: int,
+              k_tile: int, dead: int) -> tuple:
+    """K1 with rows: (gidx, rows), ``slot_lists``'s (n_tiles, k_tile) int32
+    lists and the (n_tiles, k_tile, 16) f32 rows ``attrs[gidx]``, bit for
+    bit, written in one pass.  ``attrs`` is the packed (dead + 512, 16)
+    table of ``_pack_attrs``, 16-byte aligned."""
+    if not _on_cuda(attrs, sorted_gauss, tile_starts, counts):
+        return plain.slot_rows_plain(attrs, sorted_gauss, tile_starts,
+                                     counts, n_tiles, k_tile, dead)
+    _check_lists(sorted_gauss, tile_starts, counts, n_tiles)
+    _check(attrs, "attrs", torch.float32, (dead + plain.DEAD_SPREAD, plain.A))
+    if attrs.data_ptr() % 16:
+        raise ValueError("attrs: want a 16-byte aligned table, for its "
+                         "float4 loads")
+    gidx = torch.empty((n_tiles, k_tile), dtype=torch.int32,
+                       device=attrs.device)
+    rows = torch.empty((n_tiles, k_tile, plain.A), dtype=torch.float32,
+                       device=attrs.device)
+    _launch("slot_lists", "slot_rows", sorted_gauss.data_ptr(),
+            tile_starts.data_ptr(), counts.data_ptr(), attrs.data_ptr(),
+            gidx.data_ptr(), rows.data_ptr(), n_tiles, k_tile, dead)
+    return gidx, rows
+
+
+class _SlotRows(torch.autograd.Function):
+    """K1 with rows as the differentiable gather ``attrs[gidx]``: the
+    forward returns (rows, gidx), ``gidx`` not differentiable; the backward
+    is the gather's VJP as PyTorch computes it for ``attrs[gidx]``, a
+    scatter-add of the rows' gradients into a zero table, through the same
+    call, which skips the public ``index_put_``'s range check of the
+    indices (a min and a max read back to the host: two syncs a step)."""
+
+    @staticmethod
+    def forward(ctx, attrs, sorted_gauss, tile_starts, counts, n_tiles,
+                k_tile, dead):
+        gidx, rows = slot_rows(attrs, sorted_gauss, tile_starts, counts,
+                               n_tiles, k_tile, dead)
+        ctx.mark_non_differentiable(gidx)
+        ctx.save_for_backward(gidx)
+        ctx.attrs_shape = attrs.shape
+        return rows, gidx
+
+    @staticmethod
+    def backward(ctx, grad_rows, _):
+        gidx, = ctx.saved_tensors
+        dattrs = grad_rows.new_zeros(ctx.attrs_shape)
+        torch.ops.aten._index_put_impl_(dattrs, (gidx,), grad_rows,
+                                        accumulate=True, unsafe=True)
+        return dattrs, None, None, None, None, None, None
 
 
 def forward_tiles(n_chunks, tile_ids, attrs_tiled, th, tw, k_tile, k_chunk,
@@ -96,10 +153,10 @@ def forward_tiles(n_chunks, tile_ids, attrs_tiled, th, tw, k_tile, k_chunk,
            (n_tiles, k_tile, plain.A))
     out = torch.empty((n_tiles, plain.ROWS, th * tw), dtype=torch.float32,
                       device=attrs_tiled.device)
-    _launch("composite_fwd", _ptr(n_chunks), _ptr(tile_ids),
-            _ptr(attrs_tiled), _ptr(out), n_tiles, th, tw, k_tile, k_chunk,
-            n_tx, cfg.alpha_clip, cfg.alpha_threshold, int(early_exit),
-            _stream(out))
+    _launch("composite_fwd", "composite_fwd", n_chunks.data_ptr(),
+            tile_ids.data_ptr(), attrs_tiled.data_ptr(), out.data_ptr(),
+            n_tiles, th, tw, k_tile, k_chunk, n_tx, cfg.alpha_clip,
+            cfg.alpha_threshold, int(early_exit))
     return out
 
 
@@ -122,10 +179,10 @@ def backward_tiles(chunks_done, tile_ids, attrs_tiled, fwd_stack, grad_stack,
     _check(fwd_stack, "fwd_stack", torch.float32, stack_shape)
     _check(grad_stack, "grad_stack", torch.float32, stack_shape)
     out = torch.empty_like(attrs_tiled)
-    _launch("composite_bwd", _ptr(chunks_done), _ptr(tile_ids),
-            _ptr(attrs_tiled), _ptr(fwd_stack), _ptr(grad_stack), _ptr(out),
-            n_tiles, th, tw, k_tile, k_chunk, n_tx, cfg.alpha_clip,
-            cfg.alpha_threshold, _stream(out))
+    _launch("composite_bwd", "composite_bwd", chunks_done.data_ptr(),
+            tile_ids.data_ptr(), attrs_tiled.data_ptr(), fwd_stack.data_ptr(),
+            grad_stack.data_ptr(), out.data_ptr(), n_tiles, th, tw, k_tile,
+            k_chunk, n_tx, cfg.alpha_clip, cfg.alpha_threshold)
     return out
 
 
@@ -210,14 +267,13 @@ def rasterize_cuda(
 
     attrs = _pack_attrs(proj, colors, opacities)
     capped = torch.clamp(bins.tile_counts, max=k_tile)
-    gidx = slot_lists(bins.sorted_gauss, bins.tile_starts, capped, n_tiles,
-                      k_tile, N)
+    # (n_tiles, k_tile, 16) rows attrs[gidx]; their backward is a scatter-add
+    attrs_tiled, _ = _SlotRows.apply(attrs, bins.sorted_gauss,
+                                     bins.tile_starts, capped, n_tiles,
+                                     k_tile, N)
     n_chunks = torch.div(capped + k_chunk - 1, k_chunk,
                          rounding_mode="floor").to(torch.int32)
-    tile_ids = torch.arange(n_tiles, dtype=torch.int32, device=gidx.device)
-
-    # (n_tiles, k_tile, 16); the backward of this index is a scatter-add
-    attrs_tiled = attrs[gidx]
+    tile_ids = torch.arange(n_tiles, dtype=torch.int32, device=attrs.device)
     stack = _CompositeTiles.apply(attrs_tiled, n_chunks, tile_ids,
                                   (th, tw, k_tile, k_chunk, n_tx, cfg),
                                   early_exit)

@@ -1,5 +1,6 @@
-"""Plain PyTorch versions of the three tile kernels (K1 slot lists, K2
-forward compositing, K3 backward compositing).
+"""Plain PyTorch versions of the three tile kernels (K1 slot lists, with or
+without their attribute rows, K2 forward compositing, K3 backward
+compositing).
 
 Each computes the same function as its CUDA kernel in
 ``touchgs_torch/csrc/`` and as the Pallas kernel it replaces in
@@ -39,6 +40,15 @@ def slot_lists_plain(sorted_gauss, tile_starts, counts, n_tiles: int,
     vals = sorted_gauss[pos.long()]
     dead_row = dead + ((j + t * 131) & (DEAD_SPREAD - 1))
     return torch.where(live, vals, dead_row).to(torch.int32)
+
+
+def slot_rows_plain(attrs, sorted_gauss, tile_starts, counts, n_tiles: int,
+                    k_tile: int, dead: int) -> tuple:
+    """(gidx, rows): ``slot_lists_plain``'s lists and the (n_tiles, k_tile,
+    16) attribute rows ``attrs[gidx]`` they name."""
+    gidx = slot_lists_plain(sorted_gauss, tile_starts, counts, n_tiles,
+                            k_tile, dead)
+    return gidx, attrs[gidx]
 
 
 def _pixel_geometry(tile_ids, th, tw, n_tx):
