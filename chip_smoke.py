@@ -8,12 +8,13 @@ Phases (any failure raises, and the script exits nonzero with no result):
    kernel sources of ``touchgs_torch/csrc/`` built with nvcc for sm_90a;
    ptxas's registers per kernel, the SASS opcode counts of the compositing
    and the anatomy kernels (the `full` ablation must keep its R, G, B, D
-   FMAs), K2's and K3's entry loops per (entry, pixel) pair (K3 at most 10
-   SHFL per entry and thread), and K2's and K3's pixels per thread,
-   threads, registers and resident blocks per SM (at least 2 for 32x32
-   tiles).  Then K4, ``compile_smoke``, against its plain version, exactly;
-   the host cost of each piece of a wrapper call (``host_costs``), and K4
-   timed in turns with ``torch.mul(x, 2.0)``.
+   FMAs), every such kernel's entry loop per (entry, pixel) pair (K3 at
+   most 10 SHFL per entry and thread; the bf16 probe's loop must hold its
+   HMMA), and the pixels per thread, threads, registers and resident blocks
+   per SM of K2, K3 and the K5 modes (at least 2 for 32x32 tiles).  Then
+   K4, ``compile_smoke``, against its plain version, exactly; the host cost
+   of each piece of a wrapper call (``host_costs``), and K4 timed in turns
+   with ``torch.mul(x, 2.0)``.
 2. Kernels against their plain PyTorch versions at the flagship shapes
    (800x800, 100k Gaussians in a capacity of 131072, SH degree 3; 625 tiles
    of 32x32, k_tile 512, k_chunk 64): K1 slot lists bit-exact, alone and
@@ -40,9 +41,16 @@ Phases (any failure raises, and the script exits nonzero with no result):
 6. The anatomy's kernels against their plain versions on the same inputs:
    K2 at k_chunk 128 with and without its exit (as in phase 2); each K5 mode
    within 3e-5 of each tile's largest output; K6 f32 within 1e-5 and bf16
-   within 2^-6 of it.  Median times, the attribution of K2's time, the fp32
-   rate alpha_only sustains and f32 against bf16.
-7. One ``kernels`` JSON line (eleven entries; ``launches`` from the
+   within 2^-6 of it, on the probe's rows and on rows spread over the
+   whole tile.  Times per call (median over CUDA events) and
+   queue-full (``batched_ms``); from the queue-full times the attribution
+   of K2's time, the fp32 rate alpha_only sustains, f32 against bf16 and,
+   at the SM clock nvidia-smi reads under load, printed lines of each K5
+   mode's and K6 leg's time against its bound, its issue roof (its entry
+   loop's SASS a pair at one instruction a lane and clock) and its MUFU
+   floor (``roofs``, models, kept out of the kernels line).
+7. One ``kernels`` JSON line (eleven entries of measured times, errors and
+   launches and the computed ``bound_ms``; ``launches`` from the
    training path for its kernels, from the anatomy path for the others),
    then the last line
    ``{"ok": true, "device": {...}}``.
@@ -51,10 +59,12 @@ Without a CUDA device it exits with status 1 before doing anything.
 
     python3 chip_smoke.py --ab OLD_CSRC
 
-instead builds K2 and K3 from the directory OLD_CSRC as well (an earlier
-commit's ``touchgs_torch/csrc``, unpacked with ``git archive`` into a
-gitignored directory such as ``.archive/``) and times the two versions in
-turns at the flagship shapes (``phase_ab``).
+instead builds K2, K3, K5 and K6 from the directory OLD_CSRC as well (an
+earlier commit's ``touchgs_torch/csrc``, unpacked with ``git archive`` into
+a gitignored directory such as ``.archive/``), holds each pair of versions
+against each other and times them in turns, K2 and K3 at the flagship
+shapes (``phase_ab``), K5 on the anatomy's tiles and K6 on the probe's rows
+(``phase_ab_anatomy``).
 """
 from __future__ import annotations
 
@@ -131,7 +141,7 @@ def look_at_c2w(eye, target=(0.0, 0.0, 0.0)) -> np.ndarray:
 
 
 SASS_OPS = ("FFMA", "FMUL", "FADD", "FMNMX", "FSETP", "FSEL", "MUFU.EX2",
-            "SHFL", "HFMA2", "HMUL2", "HADD2", "HMNMX2", "HSET2")
+            "SHFL", "HFMA2", "HMUL2", "HADD2", "HMNMX2", "HSET2", "HMMA")
 # K3's shuffles per replayed entry and thread (a 5-step butterfly for each
 # of its ten sums would take 50)
 K3_MAX_SHFL_PER_ENTRY = 10
@@ -141,10 +151,11 @@ def sass_name(fn: str) -> str:
     """A readable name for a mangled kernel function of the libraries."""
     from touchgs_torch.ops.anatomy import MODES
 
-    m = re.search(r"anatomy_kernelILi(\d)E", fn)
-    if m:
-        return f"anatomy_{MODES[int(m.group(1))]}"
     # pixels per thread as _p<P>; kernels of one pixel a thread have no P
+    m = re.search(r"anatomy_kernelILi(\d)E(?:Li(\d)E)?", fn)
+    if m:
+        return (f"anatomy_{MODES[int(m.group(1))]}"
+                + (f"_p{m.group(2)}" if m.group(2) else ""))
     m = re.search(r"composite_fwd_kernelILb(\d)E(?:Li(\d)E)?", fn)
     if m:
         return ("composite_fwd" + ("" if m.group(1) == "1" else "_no_exit")
@@ -158,76 +169,103 @@ def sass_name(fn: str) -> str:
 
 def pick(ops) -> dict:
     """The SASS_OPS counts of a Counter of opcodes (with their variants)."""
-    return {op: sum(n for k, n in ops.items()
-                    if k == op or k.startswith(op + "."))
+    from touchgs_torch.ops.cuda_build import is_op
+
+    return {op: sum(n for k, n in ops.items() if is_op(k, op))
             for op in SASS_OPS}
 
 
-def entry_loop(name: str, loop) -> float:
-    """Print a compositing kernel's entry loop (the innermost loop holding
-    every MUFU.EX2, from ``cuda_build.sass_loop_counts``) per (entry, pixel)
-    pair: each of a thread's P pixels (the ``_p<P>`` of ``name``, else 1)
-    takes one exp2, so MUFU.EX2 / P counts the entries of a loop copy.
-    Returns its SHFL per entry and thread."""
+def entry_loop(name: str, loop) -> dict:
+    """Print a kernel's entry loop (``cuda_build.sass_loop_counts``) per
+    (entry, pixel) pair; a kernel named ``_p<P>`` covers P pixels a thread,
+    so its pairs / P are the entries of a pass.  Returns per pair its SASS
+    in all (``sass``), MUFU.EX2 (``mufu``) and HMMA (``hmma``), and SHFL
+    per entry and thread (``shfl``)."""
     body = pick(loop)
-    pairs = body["MUFU.EX2"]
+    # the pairs a thread covers in one pass: 4 per HMMA (a lane's m16n8k16
+    # B fragment is four α), else one per MUFU.EX2 (one exp2 a pair; a
+    # packed bf16 exp2 issues two for a word of two pairs), else one per
+    # FMNMX (the α clip of K5's noexp)
+    pairs = 4 * body["HMMA"] or body["MUFU.EX2"] or body["FMNMX"]
     m = re.search(r"_p(\d)$", name)
     entries = pairs / (int(m.group(1)) if m else 1)
     counted = sum(n for op, n in body.items() if op != "SHFL")
-    shfl = body["SHFL"] / entries
-    print(f"    entry loop ({entries:g} entries a copy): "
+    out = dict(sass=sum(loop.values()) / pairs, mufu=body["MUFU.EX2"] / pairs,
+               hmma=body["HMMA"] / pairs, shfl=body["SHFL"] / entries)
+    print(f"    entry loop ({pairs:g} pairs a pass"
+          + (f", {entries:g} entries" if m else "") + "): "
           + " ".join(f"{op} {n}" for op, n in body.items() if n)
           + f"; per pair {counted / pairs:.2f} counted (SHFL aside), "
-          f"{sum(loop.values()) / pairs:.2f} SASS in all; SHFL {shfl:.2f} "
-          f"per entry and thread")
-    return shfl
+          f"{out['sass']:.2f} SASS in all; SHFL {out['shfl']:.2f} per entry "
+          f"and thread")
+    return out
 
 
-def print_sass(cuda_build) -> None:
-    """Static SASS opcode counts of the compositing and the anatomy kernels,
-    and K2's and K3's entry loops (``entry_loop``).  Fails if `full` lost
-    its R, G, B, D accumulations (it would then time no_mxu) or K3's loop
-    shuffles more than K3_MAX_SHFL_PER_ENTRY a thread per entry."""
-    ffma = {}
+def print_sass(cuda_build) -> dict:
+    """Static SASS opcode counts of the compositing and the anatomy
+    kernels, and each one's entry loop (``entry_loop``).  Fails if `full`
+    lost its R, G, B, D accumulations (it would then time no_mxu), K3's
+    loop shuffles more than K3_MAX_SHFL_PER_ENTRY a thread per entry, a K5
+    or K6 kernel has no entry loop, or the bf16 probe's has no HMMA.
+    Returns the ``entry_loop`` figures by kernel name."""
+    from touchgs_torch.ops.anatomy import MODES
+
+    ffma, loops = {}, {}
     for lib in ("composite_fwd", "composite_bwd", "anatomy_variants",
                 "bf16_probe"):
-        loops = (cuda_build.sass_loop_counts(lib)
-                 if lib.startswith("composite") else {})
+        found = cuda_build.sass_loop_counts(lib)
         for fn, ops in cuda_build.sass_counts(lib).items():
             name = sass_name(fn)
             picked = pick(ops)
             ffma[name] = picked["FFMA"]
             print(f"  sass {name}: " + " ".join(
                 f"{op} {n}" for op, n in picked.items() if n))
-            if fn in loops:
-                shfl = entry_loop(name, loops[fn])
-                check(lib != "composite_bwd" or shfl <= K3_MAX_SHFL_PER_ENTRY,
-                      f"{name}: {shfl} SHFL per entry")
-    check(ffma["anatomy_full"] >= ffma["anatomy_no_mxu"] + 4,
-          f"anatomy full has {ffma['anatomy_full']} FFMA against no_mxu's "
-          f"{ffma['anatomy_no_mxu']}: its R, G, B, D accumulations are gone")
+            if fn in found:
+                loops[name] = entry_loop(name, found[fn])
+                check(lib != "composite_bwd"
+                      or loops[name]["shfl"] <= K3_MAX_SHFL_PER_ENTRY,
+                      f"{name}: {loops[name]['shfl']} SHFL per entry")
+    for P in (4, 2, 1):
+        full, no_mxu = ffma[f"anatomy_full_p{P}"], ffma[f"anatomy_no_mxu_p{P}"]
+        check(full >= no_mxu + 4 * P,
+              f"anatomy full (P = {P}) has {full} FFMA against no_mxu's "
+              f"{no_mxu}: its R, G, B, D accumulations are gone")
+    probes = [f"anatomy_{m}_p{P}" for m in MODES for P in (4, 2, 1)]
+    probes += ["bf16_probe_f32", "bf16_probe_bf16"]
+    check(all(n in loops for n in probes),
+          f"no entry loop in {[n for n in probes if n not in loops]}")
+    check(loops["bf16_probe_bf16"]["hmma"] > 0,
+          "the bf16 probe's entry loop has no HMMA")
+    return loops
 
 
 def print_launch_shapes(cuda_build) -> None:
-    """K2's and K3's pixels per thread, threads, registers and resident
-    blocks per SM, for the flagship's 32x32 tiles and for 16x16 tiles."""
+    """Pixels per thread, threads, registers and resident blocks per SM of
+    the kernels in K2's thread shape (K2, K3 at k_chunk 64, the K5 modes at
+    the anatomy's 128), for the flagship's 32x32 tiles and for 16x16 tiles;
+    at least 2 resident blocks per SM for 32x32."""
+    from touchgs_torch.ops.anatomy import MODES
+
+    shapes = [("composite_fwd", 1, 64, "composite_fwd"),
+              ("composite_fwd", 0, 64, "composite_fwd_no_exit"),
+              ("composite_bwd", 0, 64, "composite_bwd")]
+    shapes += [("anatomy_variants", i, 128, f"anatomy_{m}")
+               for i, m in enumerate(MODES)]
     for npix in (1024, 256):
-        for name, variant in (("composite_fwd", 1), ("composite_fwd", 0),
-                              ("composite_bwd", 0)):
-            info = cuda_build.kernel_info(name, npix, 64, variant)
-            label = name + ("_no_exit" if name == "composite_fwd"
-                            and not variant else "")
-            print(f"  shape {label} at {npix} px, k_chunk 64: " + ", ".join(
-                f"{k} {v}" for k, v in info.items()))
+        for name, variant, k_chunk, label in shapes:
+            info = cuda_build.kernel_info(name, npix, k_chunk, variant)
+            print(f"  shape {label} at {npix} px, k_chunk {k_chunk}: "
+                  + ", ".join(f"{k} {v}" for k, v in info.items()))
             if npix == 1024:
                 check(info["blocks_per_sm"] >= 2,
                       f"{label}: {info['blocks_per_sm']} resident blocks "
                       f"per SM, want at least 2")
 
 
-def phase_build() -> dict:
+def phase_build() -> tuple:
     """Build every kernel, show what ptxas and the SASS say, and hold K4
-    against its plain version; returns K4's entry of the kernels line."""
+    against its plain version; returns K4's entry of the kernels line and
+    the entry loops' figures (``print_sass``)."""
     from touchgs_torch.ops import cuda_build
 
     t0 = time.time()
@@ -242,7 +280,7 @@ def phase_build() -> dict:
                 fn = sass_name(m.group(1))
             elif "registers" in line or "spill" in line:
                 print(f"  ptxas {fn}: {line.strip()}")
-    print_sass(cuda_build)
+    loops = print_sass(cuda_build)
     print_launch_shapes(cuda_build)
 
     x = torch.arange(8 * 128, dtype=torch.float32,
@@ -273,7 +311,8 @@ def phase_build() -> dict:
                 source="touchgs_torch/csrc/compile_smoke.cu",
                 replaces="bench.py:113", max_abs_err=0.0, ms=t_k4,
                 plain_ms=t_plain, bound_ms=b[0], bound_by=b[1],
-                library_ms=t_lib, device_ms=d_k4, library_device_ms=d_lib)
+                library_ms=t_lib, device_ms=d_k4,
+                library_device_ms=d_lib), loops
 
 
 def host_costs(cuda_build, x, calls: int = HOST_CALLS,
@@ -765,9 +804,54 @@ def phase_anatomy_path() -> tuple:
     return counts, x, probe
 
 
-def phase_anatomy(x, probe) -> list:
+def tile_errors(out, ref) -> tuple:
+    """(max abs error, max of each tile's error over its largest output)"""
+    diff = (out - ref).abs().amax(dim=(1, 2))
+    scale = ref.abs().amax(dim=(1, 2)).clamp(min=1e-30)
+    return float(diff.max()), float((diff / scale).max())
+
+
+def sm_clock_mhz(fn, timeout_s: float = 60.0) -> float:
+    """The SM clock (MHz) that nvidia-smi reads while ``fn`` runs back to
+    back on the card."""
+    import subprocess
+
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+         "nounits"], stdout=subprocess.PIPE, text=True)
+    t0 = time.time()
+    while proc.poll() is None:
+        if time.time() - t0 > timeout_s:
+            proc.kill()
+            raise RuntimeError("chip_smoke: nvidia-smi did not answer")
+        for _ in range(10):
+            fn()
+        torch.cuda.synchronize()
+    return float(proc.stdout.read().split()[0])
+
+
+def roofs(ms: float, bound_ms: float, loop: dict, pairs: int,
+          clock_mhz: float) -> dict:
+    """A probe's time against its bound and against the issue roof: its
+    entry loop's SASS a pair at one instruction a lane and clock (4 warp
+    instructions a clock on each SM), and the MUFU floor at 16 MUFU results
+    a clock and SM.  Times in ms, shares of the measured time."""
+    lane_clocks = (torch.cuda.get_device_properties(0).multi_processor_count
+                   * clock_mhz * 1e6)
+    issue = loop["sass"] * pairs / (128 * lane_clocks) * 1e3
+    mufu = loop["mufu"] * pairs / (16 * lane_clocks) * 1e3
+    return dict(bound_share=bound_ms / ms, sass_per_pair=loop["sass"],
+                issue_ms=issue, issue_share=issue / ms, mufu_ms=mufu,
+                mufu_share=mufu / ms)
+
+
+def phase_anatomy(x, probe, loops: dict) -> list:
     """The anatomy's kernels against their plain versions on its inputs;
-    returns the K5 and K6 entries of the kernels line."""
+    returns the K5 and K6 entries of the kernels line.  Each is timed per
+    call (``median_ms``, the wrapper's host work included) and queue-full
+    (``batched_ms``, the device's time); the attribution of K2's time, bf16
+    against f32 and the roofs (``roofs``, from the entry loops ``loops`` of
+    ``print_sass``) read the queue-full times."""
     from touchgs_torch.ops import anatomy
     from touchgs_torch.ops import rasterize_cuda as rc
     from touchgs_torch.ops import rasterize_plain as plain
@@ -788,28 +872,23 @@ def phase_anatomy(x, probe) -> list:
           and float((fwd[:, rows] - fwd_p[:, rows]).abs().max()) <= 3e-5
           and float((fwd[:, 3] - fwd_p[:, 3]).abs().max()) <= 3e-4,
           "K2 with exit at k_chunk 128 differs from plain")
-    ms = {"exit": median_ms(k2, 20)}
-    _, ms["noexit"], _ = check_forward_without_exit(x.nc, x.tids, x.at,
-                                                    x.geom)
-
-    def errors(out, ref):
-        """(max abs error, max of each tile's error over its largest
-        output)"""
-        diff = (out - ref).abs().amax(dim=(1, 2))
-        scale = ref.abs().amax(dim=(1, 2)).clamp(min=1e-30)
-        return float(diff.max()), float((diff / scale).max())
+    check_forward_without_exit(x.nc, x.tids, x.at, x.geom)
+    q = {"exit": batched_ms(k2, 20), "noexit": batched_ms(
+        lambda: rc.forward_tiles(x.nc, x.tids, x.at, *x.geom,
+                                 early_exit=False), 20)}
 
     out_bytes = n_tiles * 2 * npix * 4
     result = []
     for mode in anatomy.MODES:
         args = (mode, x.nc, x.tids, x.at, *x.geom)
-        err, rel = errors(anatomy.variant(*args),
-                          anatomy.variant_plain(*args))
+        err, rel = tile_errors(anatomy.variant(*args),
+                               anatomy.variant_plain(*args))
         torch.cuda.synchronize()
         print(f"K5 {mode}: max error {err:.3e}, {rel:.3e} of the tile's "
               f"largest output (tol 3e-5)")
         check(rel <= 3e-5, f"K5 {mode} outside tolerance")
-        ms[mode] = median_ms(lambda: anatomy.variant(*args), 20)
+        t = median_ms(lambda: anatomy.variant(*args), 20)
+        q[mode] = batched_ms(lambda: anatomy.variant(*args), 20)
         t_p = median_ms(lambda: anatomy.variant_plain(*args), 3, warmup=1)
         b = bound(entries * plain.A * 4 + 8 * n_tiles + out_bytes,
                   fp32_ops=anatomy.OPS_PER_PAIR[mode] * entries * npix)
@@ -817,22 +896,29 @@ def phase_anatomy(x, probe) -> list:
             name=f"anatomy_{mode}", route="cuda",
             source="touchgs_torch/csrc/anatomy_variants.cu",
             replaces="tools/exp_kernel_anatomy.py:132", max_abs_err=err,
-            ms=ms[mode], plain_ms=t_p, bound_ms=b[0], bound_by=b[1],
-            library_ms=None, library_note="no single PyTorch call "
-            "composites these ablations"))
-    tool.print_attribution(ms, entries, npix)
+            ms=t, batched_ms=q[mode], plain_ms=t_p, bound_ms=b[0],
+            bound_by=b[1], library_ms=None, library_note="no single PyTorch "
+            "call composites these ablations"))
+    tool.print_attribution(q, entries, npix)
 
     n_probe = probe["f32"].shape[0]
     pairs = n_probe * anatomy.PROBE_ROWS * anatomy.PROBE_NPIX
+    # rows whose α reaches every part of a tile (the probe's own light only
+    # its first pixels)
+    spread = tool.probe_inputs(133, probe["f32"].device, spread=True)
     for leg, at in probe.items():
         out, ref = anatomy.bf16_probe(at), anatomy.bf16_probe_plain(at)
+        s_rel = tile_errors(anatomy.bf16_probe(spread[leg]),
+                            anatomy.bf16_probe_plain(spread[leg]))[1]
         torch.cuda.synchronize()
-        err, rel = errors(out, ref)
+        err, rel = tile_errors(out, ref)
         tol = 1e-5 if leg == "f32" else 2.0 ** -6
         print(f"K6 {leg}: max error {err:.3e}, {rel:.3e} of the tile's "
-              f"largest output (tol {tol:.3g})")
-        check(rel <= tol, f"K6 {leg} outside tolerance")
-        ms[leg] = median_ms(lambda: anatomy.bf16_probe(at), 20)
+              f"largest output (tol {tol:.3g}); on 133 tiles of spread rows "
+              f"{s_rel:.3e}")
+        check(rel <= tol and s_rel <= tol, f"K6 {leg} outside tolerance")
+        t = median_ms(lambda: anatomy.bf16_probe(at), 20)
+        q[leg] = batched_ms(lambda: anatomy.bf16_probe(at), 20)
         t_p = median_ms(lambda: anatomy.bf16_probe_plain(at), 3, warmup=1)
         chain = anatomy.PROBE_CHAIN_OPS * pairs
         sums = anatomy.PROBE_SUM_OPS * pairs
@@ -843,11 +929,30 @@ def phase_anatomy(x, probe) -> list:
             name=f"bf16_probe_{leg}", route="cuda",
             source="touchgs_torch/csrc/bf16_probe.cu",
             replaces="tools/exp_kernel_anatomy.py:205", max_abs_err=err,
-            ms=ms[leg], plain_ms=t_p, bound_ms=b[0], bound_by=b[1],
-            library_ms=None, library_note="no single PyTorch call "
-            "computes the α-sum probe"))
-    print(f"bf16 probe: f32 {ms['f32']:.4f} ms, bf16 {ms['bf16']:.4f} ms, "
-          f"bf16 runs {ms['f32'] / ms['bf16']:.2f}x the f32 rate")
+            ms=t, batched_ms=q[leg], plain_ms=t_p, bound_ms=b[0],
+            bound_by=b[1], library_ms=None, library_note="no single PyTorch "
+            "call computes the α-sum probe"))
+    print(f"bf16 probe, queue-full: f32 {q['f32']:.4f} ms, bf16 "
+          f"{q['bf16']:.4f} ms, bf16 runs {q['f32'] / q['bf16']:.2f}x the "
+          f"f32 rate")
+
+    args = ("alpha_only", x.nc, x.tids, x.at, *x.geom)
+    clock = sm_clock_mhz(lambda: anatomy.variant(*args))
+    P = plain.pixels_per_thread(npix)
+    print(f"queue-full times against the roofs, at the SM clock nvidia-smi "
+          f"read under K5 alpha_only, {clock:.0f} MHz:")
+    for k in result:
+        if k["name"].startswith("anatomy_"):
+            loop, n = loops[f"{k['name']}_p{P}"], entries * npix
+        else:
+            loop, n = loops[k["name"]], pairs
+        r = roofs(k["batched_ms"], k["bound_ms"], loop, n, clock)
+        k["sm_clock_mhz"] = clock
+        print(f"  {k['name']}: {k['batched_ms']:.4f} ms; bound "
+              f"{k['bound_ms']:.4f} ms ({100 * r['bound_share']:.1f}%); issue "
+              f"roof {r['issue_ms']:.4f} ms at {r['sass_per_pair']:.2f} SASS a "
+              f"pair ({100 * r['issue_share']:.1f}%); MUFU floor "
+              f"{r['mufu_ms']:.4f} ms ({100 * r['mufu_share']:.1f}%)")
     return result
 
 
@@ -899,12 +1004,35 @@ def device_ms(fn, calls: int = 20) -> float:
     return total
 
 
+def ab_sass(cb, names, old) -> None:
+    """For the A/B: ptxas's registers of the libraries ``names`` as built
+    from ``old`` (the last build's log), and the entry loops of the old and
+    the new build (P = 4 where a kernel has several instances)."""
+    for name in names:
+        for line in cb.build_logs[name].splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  old ptxas {name}: {line.strip()}")
+        for tag, src in (("old", old), ("new", cb.CSRC)):
+            for f, loop in cb.sass_loop_counts(name, src).items():
+                if not re.search(r"_p[12]$", sass_name(f)):
+                    print(f"  {tag} {sass_name(f)}:")
+                    entry_loop(sass_name(f), loop)
+
+
+def ab_time(name: str, fo, fn, rounds: int) -> None:
+    """``fo`` (old) and ``fn`` (new) timed in turns old, new, new, old, each
+    ``batched_ms`` over ``rounds`` launches."""
+    t = [batched_ms(f, rounds) for f in (fo, fn, fn, fo)]
+    print(f"A/B {name}: old {t[0]:.4f}, new {t[1]:.4f}, new {t[2]:.4f}, "
+          f"old {t[3]:.4f} ms; old/new {(t[0] + t[3]) / (t[1] + t[2]):.3f}x")
+
+
 def phase_ab(dev, old, rounds: int = 20) -> None:
     """K2 and K3 of this tree against the same two kernels built from the
     sources in the directory ``old`` (an earlier commit's
     ``touchgs_torch/csrc``, with the same launch signatures) at the flagship
-    shapes: the pairs held against each other, then timed in turns old, new,
-    new, old, each ``batched_ms`` over ``rounds`` launches."""
+    shapes: the pairs held against each other, then timed in turns
+    (``ab_time``)."""
     from pathlib import Path
 
     from touchgs_torch.ops import cuda_build as cb
@@ -959,10 +1087,6 @@ def phase_ab(dev, old, rounds: int = 20) -> None:
 
     b_old, b_new = old_bwd(), new_bwd()
     torch.cuda.synchronize()
-    for name in ("composite_fwd", "composite_bwd"):  # the old build's log
-        for line in cb.build_logs[name].splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  old ptxas {name}: {line.strip()}")
     # the versions sum the cancelling per-pixel terms in different orders,
     # so they differ by float32 rounding of those sums, not of the results
     err = float((b_old - b_new).abs().max())
@@ -970,15 +1094,74 @@ def phase_ab(dev, old, rounds: int = 20) -> None:
     print(f"A/B against {old}: K2 chunks_done and T equal; K3 max abs "
           f"{err:.3e} of largest {scale:.3e}")
     check(err <= 1e-4 * scale, "A/B: K3 versions disagree")
-    for name, fo, fn in (("composite_fwd", old_fwd, new_fwd),
-                         ("composite_bwd", old_bwd, new_bwd)):
-        for tag, src in (("old", old), ("new", cb.CSRC)):
-            for f, loop in cb.sass_loop_counts(name, src).items():
-                print(f"  {tag} {sass_name(f)}:")
-                entry_loop(sass_name(f), loop)
-        t = [batched_ms(f, rounds) for f in (fo, fn, fn, fo)]
-        print(f"A/B {name}: old {t[0]:.4f}, new {t[1]:.4f}, new {t[2]:.4f}, "
-              f"old {t[3]:.4f} ms; old/new {(t[0] + t[3]) / (t[1] + t[2]):.3f}x")
+    ab_sass(cb, ("composite_fwd", "composite_bwd"), old)
+    ab_time("composite_fwd", old_fwd, new_fwd, rounds)
+    ab_time("composite_bwd", old_bwd, new_bwd, rounds)
+
+
+def phase_ab_anatomy(dev, old, rounds: int = 20) -> None:
+    """K5 and K6 of this tree against the same two kernels built from the
+    sources in ``old``, on the anatomy's tiles and the probe's rows: each K5
+    mode within 3e-5 of the tile's largest output with an equal T row, each
+    K6 leg within its tolerance (f32 1e-5, bf16 2^-6), then timed in turns
+    (``ab_time``)."""
+    from pathlib import Path
+
+    from touchgs_torch.ops import anatomy
+    from touchgs_torch.ops import cuda_build as cb
+    from touchgs_torch.tools import exp_kernel_anatomy as tool
+
+    old = Path(old).resolve()
+    x, probe = tool.anatomy_inputs(), tool.probe_inputs()
+    th, tw, k_tile, k_chunk, n_tx, cfg = x.geom
+    n_tiles, npix = x.at.shape[0], th * tw
+    timed = []
+    for i, mode in enumerate(anatomy.MODES):
+        def old_k5(i=i, mode=mode):
+            out = torch.empty((n_tiles, 2, npix), device=dev)
+            scratch = (torch.empty((n_tiles, 4, npix), device=dev)
+                       if mode == "full" else None)
+            cb.call("anatomy_variants", x.nc.data_ptr(), x.tids.data_ptr(),
+                    x.at.data_ptr(), out.data_ptr(),
+                    None if scratch is None else scratch.data_ptr(), i,
+                    n_tiles, th, tw, k_tile, k_chunk, n_tx, cfg.alpha_clip,
+                    cfg.alpha_threshold, cb.current_stream(), src=old)
+            return out
+
+        def new_k5(mode=mode):
+            return anatomy.variant(mode, x.nc, x.tids, x.at, *x.geom)
+
+        o, n = old_k5(), new_k5()
+        torch.cuda.synchronize()
+        rel = tile_errors(n, o)[1]
+        t_equal = torch.equal(o[:, 1], n[:, 1])
+        print(f"A/B K5 {mode}: {rel:.3e} of the tile's largest output (tol "
+              f"3e-5); T equal: {t_equal}")
+        check(rel <= 3e-5 and t_equal, f"A/B: K5 {mode} versions disagree")
+        timed.append((f"anatomy_{mode}", old_k5, new_k5))
+    for leg, at in probe.items():
+        def old_k6(at=at, leg=leg):
+            out = torch.empty((at.shape[0], 1, anatomy.PROBE_NPIX),
+                              device=dev)
+            cb.call("bf16_probe", at.data_ptr(), out.data_ptr(),
+                    int(leg == "bf16"), at.shape[0], cb.current_stream(),
+                    src=old)
+            return out
+
+        def new_k6(at=at):
+            return anatomy.bf16_probe(at)
+
+        o, n = old_k6(), new_k6()
+        torch.cuda.synchronize()
+        rel = tile_errors(n, o)[1]
+        tol = 1e-5 if leg == "f32" else 2.0 ** -6
+        print(f"A/B K6 {leg}: {rel:.3e} of the tile's largest output (tol "
+              f"{tol:.3g})")
+        check(rel <= tol, f"A/B: K6 {leg} versions disagree")
+        timed.append((f"bf16_probe_{leg}", old_k6, new_k6))
+    ab_sass(cb, ("anatomy_variants", "bf16_probe"), old)
+    for name, fo, fn in timed:
+        ab_time(name, fo, fn, rounds)
 
 
 def main() -> int:
@@ -990,6 +1173,7 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--ab":
         print(card(), flush=True)
         phase_ab(torch.device("cuda"), sys.argv[2])
+        phase_ab_anatomy(torch.device("cuda"), sys.argv[2])
         return 0
     t_start = time.time()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1001,7 +1185,7 @@ def main() -> int:
     print(card_name, flush=True)
     dev = torch.device("cuda")
 
-    k4 = phase_build()
+    k4, loops = phase_build()
     kernels = phase_kernels(dev)
     phase_reference(dev)
     counts, trainer = phase_train(card_name)
@@ -1009,7 +1193,7 @@ def main() -> int:
     del trainer
     torch.cuda.empty_cache()
     path_counts, x, probe = phase_anatomy_path()
-    kernels += [k4] + phase_anatomy(x, probe)
+    kernels += [k4] + phase_anatomy(x, probe, loops)
     # a kernel of the training path counts its launches there, any other
     # (K1's lists alone, K4-K6) on the anatomy path
     for k in kernels:

@@ -19,6 +19,9 @@ mode.  Tolerances and their reasons:
 - K2 without the exit: rgb/acc/T 3e-5 and depth 3e-4, as the JAX package
   holds its own kernel; ``chunks_done`` equal.
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -43,7 +46,6 @@ from tests.test_torch_rasterize import (  # noqa: F401  (fixtures)
     K_CHUNK, N_TILES, N_TX, _renders, scene, tile_cases)
 
 TH = TW = 32
-NPIX = TH * TW
 KC = 128                 # the anatomy's chunk
 SAT_TILES = 4            # the first saturating tiles: 2..5 chunks of 64
 
@@ -52,10 +54,11 @@ def _t(a):
     return torch.tensor(np.asarray(a))
 
 
-def _jax_variant(mode, nc, tids, at, n_tx, k_tile, k_chunk):
-    """``make_variant(mode)`` of tools/exp_kernel_anatomy.py:78-135."""
+def _jax_variant(mode, nc, tids, at, n_tx, k_tile, k_chunk, th=TH, tw=TW):
+    """``make_variant(mode)`` of tools/exp_kernel_anatomy.py:78-135, for
+    th x tw tiles."""
     rcfg = jcfg.RasterizeConfig(use_pallas=True)
-    th, tw, npix = TH, TW, NPIX
+    npix = th * tw
     n_tiles = at.shape[0]
     n_chunks = k_tile // k_chunk
 
@@ -151,18 +154,23 @@ def _jax_probe(dtype, at):
 
 @pytest.fixture(scope="module")
 def anatomy_tiles():
-    """Two tile sets at k_chunk 128: the anatomy's own inputs, built by the
-    port's tool on the CPU at 64x64 (4 tiles), and saturating tiles whose
-    lists run 1 to 3 chunks of 128."""
+    """Tile sets at k_chunk 128, as (attrs, n_chunks, n_tx, k_tile, th, tw):
+    the anatomy's own inputs, built by the port's tool on the CPU at 64x64
+    (4 tiles of 32x32), and saturating tiles whose lists run 1 to 3 chunks
+    of 128, made for 32x32, 8x8 and 4x8 tiles (the shapes that run 4, 2 and
+    1 pixels a thread on the card)."""
     x = tool.anatomy_inputs(device="cpu", width=64, height=64, n=3000,
                             capacity=4096)
-    at, counts = saturating_tiles()
-    at = at[:SAT_TILES]
-    nc = ((counts[:SAT_TILES] + KC - 1) // KC).astype(np.int32)
-    return {
-        "anatomy": (x.at.numpy(), x.nc.numpy(), x.geom[4], x.geom[2]),
-        "saturating": (at, nc, N_TX, at.shape[1]),
-    }
+    tiles = {"anatomy": (x.at.numpy(), x.nc.numpy(), x.geom[4], x.geom[2],
+                         TH, TW)}
+    for case, (th, tw) in (("saturating", (TH, TW)),
+                           ("saturating_8x8", (8, 8)),
+                           ("saturating_4x8", (4, 8))):
+        at, counts = saturating_tiles(th=th, tw=tw)
+        at = at[:SAT_TILES]
+        nc = ((counts[:SAT_TILES] + KC - 1) // KC).astype(np.int32)
+        tiles[case] = (at, nc, N_TX, at.shape[1], th, tw)
+    return tiles
 
 
 def _rel_err(t, j):
@@ -172,20 +180,49 @@ def _rel_err(t, j):
 
 
 @pytest.mark.parametrize("mode", anatomy.MODES)
-@pytest.mark.parametrize("case", ["anatomy", "saturating"])
+@pytest.mark.parametrize("case", ["anatomy", "saturating", "saturating_8x8",
+                                  "saturating_4x8"])
 def test_variant_matches_jax(anatomy_tiles, mode, case):
-    at, nc, n_tx, k_tile = anatomy_tiles[case]
+    at, nc, n_tx, k_tile, th, tw = anatomy_tiles[case]
     tids = np.arange(at.shape[0], dtype=np.int32)
-    j = _jax_variant(mode, nc, tids, at, n_tx, k_tile, KC)
-    t = anatomy.variant(mode, _t(nc), _t(tids), _t(at), TH, TW, k_tile, KC,
+    j = _jax_variant(mode, nc, tids, at, n_tx, k_tile, KC, th, tw)
+    t = anatomy.variant(mode, _t(nc), _t(tids), _t(at), th, tw, k_tile, KC,
                         n_tx, tcfg.RasterizeConfig()).numpy()
-    assert t.shape == (at.shape[0], 2, NPIX)
+    assert t.shape == (at.shape[0], 2, th * tw)
     assert np.abs(j[:, 0]).max() > 0.1
     err = _rel_err(t, j)
     print(f"K5 {mode} {case}: max |port - JAX| / tile max {err:.3e}")
     assert err <= 3e-5
     if mode in ("alpha_only", "noexp"):
         assert (t[:, 1] == 1).all()
+
+
+def _comment_counts(source: str, names) -> dict:
+    """{name: N} from the header comment lines ``//   <name>: ... = N`` of
+    ``touchgs_torch/csrc/<source>``, with each line's text."""
+    text = (Path(anatomy.__file__).parent.parent / "csrc" / source).read_text()
+    found = {}
+    for m in re.finditer(r"^//\s+(\w+):(.*)=\s*(\d+)\s*$", text, re.M):
+        if m.group(1) in names:
+            found[m.group(1)] = (int(m.group(3)), m.group(2))
+    assert set(found) == set(names), (source, found)
+    return found
+
+
+def test_op_counts_match_kernel_comments():
+    """The operation counts that the bounds use are the ones counted in the
+    kernels' header comments; the probe's chain adds up item by item."""
+    k5 = _comment_counts("anatomy_variants.cu", anatomy.MODES)
+    assert {m: n for m, (n, _) in k5.items()} == anatomy.OPS_PER_PAIR
+    k6 = _comment_counts("bf16_probe.cu", ("chain", "sum"))
+    assert (k6["chain"][0], k6["sum"][0]) == (anatomy.PROBE_CHAIN_OPS,
+                                            anatomy.PROBE_SUM_OPS)
+    items = [int(i.split()[-1]) for i in k6["chain"][1].split(";")]
+    assert sum(items) == anatomy.PROBE_CHAIN_OPS, items
+    # the ablations differ by the pieces they drop
+    assert (anatomy.OPS_PER_PAIR["full"] - anatomy.OPS_PER_PAIR["no_mxu"]
+            == 8)  # four FMAs
+    assert anatomy.OPS_PER_PAIR["alpha_only"] == anatomy.OPS_PER_PAIR["noexp"]
 
 
 def test_anatomy_inputs_match_jax_chunk_counts():
@@ -215,14 +252,20 @@ def test_anatomy_inputs_match_jax_chunk_counts():
     assert x.full_entries == int(np.asarray(nc).sum()) * 128 > 0
 
 
+@pytest.mark.parametrize("spread", [False, True], ids=["uniform", "spread"])
 @pytest.mark.parametrize("leg", ["f32", "bf16"])
-def test_bf16_probe_matches_jax(leg):
-    probe = tool.probe_inputs(n_tiles=2, device="cpu")
+def test_bf16_probe_matches_jax(leg, spread):
+    """The uniform rows light only the first pixels of a tile; the spread
+    rows light nearly every 8-pixel group."""
+    probe = tool.probe_inputs(n_tiles=2, device="cpu", spread=spread)
     at32 = probe["f32"].numpy()
     t = anatomy.bf16_probe(probe[leg]).numpy()
     j = _jax_probe(jnp.float32 if leg == "f32" else jnp.bfloat16, at32)
     assert t.shape == (2, 1, 1024) and t.dtype == np.float32
-    assert j.max() > 100
+    if spread:
+        assert (j.reshape(2, -1, 8) > 0).any(-1).mean() > 0.97
+    else:
+        assert j.max() > 100
     err = _rel_err(t, j)
     print(f"K6 {leg}: max |port - JAX| / tile max {err:.3e}")
     assert err <= (1e-5 if leg == "f32" else 2.0 ** -6)

@@ -143,14 +143,12 @@ def test_cuda_kernels_match_plain(cuda_device, case):
     version sums in the kernel's order.  The tile sizes take every
     pixels-per-thread instance of K2 and K3 (4, 4, 2, 1)."""
     dev = cuda_device
-    th, tw = 32, 32
+    th, tw = _case_shape(case)
     if case == "scene":
         gidx, gidx_p, at, counts = _scene_tiles(dev)
         assert torch.equal(gidx, gidx_p)
         assert bool((gidx >= N).any())
     else:
-        if "_" in case:
-            th, tw = map(int, case.split("_")[1].split("x"))
         at_np, counts_np = saturating_tiles(th=th, tw=tw)
         at = torch.as_tensor(at_np, device=dev)
         counts = torch.as_tensor(counts_np, device=dev)
@@ -373,11 +371,17 @@ def test_wrappers_check_tensors_on_card(cuda_device):
         "x: want contiguous torch.float32": lambda: cuda_build.compile_smoke(
             attrs.double()),
     }
-    before = {**rc.launches, **cuda_build.launches}
+    # contiguous, but 2 bytes past an aligned start
+    rows = torch.zeros(512 * 16 + 1, dtype=torch.bfloat16,
+                       device=cuda_device)[1:].view(1, 512, 16)
+    bad["attrs: want a 16-byte aligned start"] = lambda: anatomy.bf16_probe(
+        rows)
+    counters = (rc.launches, cuda_build.launches, anatomy.launches)
+    before = [dict(c) for c in counters]
     for match, call in bad.items():
         with pytest.raises(ValueError, match=match):
             call()
-    assert before == {**rc.launches, **cuda_build.launches}
+    assert before == [dict(c) for c in counters]
 
 
 @pytest.mark.cuda
@@ -404,11 +408,19 @@ def test_compile_smoke_on_card(cuda_device):
     assert cuda_build.launches["compile_smoke"] == before + 2
 
 
+def _case_shape(case):
+    """(th, tw) of a tile case: ``saturating_<th>x<tw>``, else 32x32."""
+    if case.startswith("saturating_"):
+        return tuple(map(int, case.split("_")[1].split("x")))
+    return 32, 32
+
+
 def _tiles_on(dev, case, k_chunk):
     if case == "scene":
         _, _, at, counts = _scene_tiles(dev)
     else:
-        at_np, counts_np = saturating_tiles()
+        th, tw = _case_shape(case)
+        at_np, counts_np = saturating_tiles(th=th, tw=tw)
         at = torch.as_tensor(at_np, device=dev)
         counts = torch.as_tensor(counts_np, device=dev)
     nc = ((counts + k_chunk - 1) // k_chunk).to(torch.int32)
@@ -441,33 +453,65 @@ def _tile_rel_err(out, ref):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mode", anatomy.MODES)
-@pytest.mark.parametrize("case", ["scene", "saturating"])
+@pytest.mark.parametrize("case", ["scene", "saturating", "saturating_8x8",
+                                  "saturating_4x8"])
 def test_anatomy_variant_matches_plain(cuda_device, case, mode):
     """K5 against its plain version: 3e-5 of the tile's largest output
     (the plain version's cumulative product and sums round in another
-    order; α is bit-identical)."""
+    order; α is bit-identical), T exactly 1 where no mode carries it.  The
+    tile sizes take every pixels-per-thread instance (4, 4, 2, 1)."""
     at, nc, tids = _tiles_on(cuda_device, case, 128)
-    args = (nc, tids, at, 32, 32, K_TILE, 128, N_TX, RasterizeConfig())
+    th, tw = _case_shape(case)
+    args = (nc, tids, at, th, tw, K_TILE, 128, N_TX, RasterizeConfig())
     before = anatomy.launches[f"anatomy_{mode}"]
     out = anatomy.variant(mode, *args)
     ref = anatomy.variant_plain(mode, *args)
     torch.cuda.synchronize()
     assert anatomy.launches[f"anatomy_{mode}"] == before + 1
+    assert out.shape == (N_TILES, 2, th * tw)
     assert float(ref[:, 0].max()) > 0.1
     assert _tile_rel_err(out, ref) <= 3e-5
+    if mode in ("alpha_only", "noexp"):
+        assert bool((out[:, 1] == 1).all())
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("npix", [1024, 256, 64, 32])
+def test_anatomy_launch_shapes(cuda_device, npix):
+    """Every K5 mode runs K2's thread shape: npix / P threads a block with
+    P as the plain version computes it, and at least two 32x32 tiles
+    resident per SM."""
+    want = plain.pixels_per_thread(npix)
+    for i, mode in enumerate(anatomy.MODES):
+        info = cuda_build.kernel_info("anatomy_variants", npix, 128, i)
+        assert info["pixels_per_thread"] == want, (mode, info)
+        assert info["threads"] == npix // want, (mode, info)
+        assert info["blocks_per_sm"] >= (2 if npix == 1024 else 1), (mode,
+                                                                      info)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spread", [False, True], ids=["uniform", "spread"])
+@pytest.mark.parametrize("n_tiles", [1, 3, 133])
 @pytest.mark.parametrize("leg", ["f32", "bf16"])
-def test_bf16_probe_matches_plain(cuda_device, leg):
-    """K6 against its plain version on the card: f32 1e-5 of the tile's
-    largest output (sum order); bf16 2^-6 (h2exp2 is not correctly
-    rounded: a few bf16 ulps, 2^-8 each, per α)."""
-    at = probe_inputs(n_tiles=8, device=cuda_device)[leg]
+def test_bf16_probe_matches_plain(cuda_device, leg, n_tiles, spread):
+    """K6 against its plain version on the card, pixel by pixel: f32 1e-5
+    of the tile's largest output (sum order); bf16 2^-6 (h2exp2's f32
+    ex2.approx rounded to bf16, and the tensor core adds each chunk in its
+    own order).  The uniform rows light only the first pixels of a tile
+    (α falls with the pixel index); the spread rows light nearly every
+    8-pixel group, so every block, warp, n-tile and lane of the mapping has
+    pixels with α > 0, and a lane that summed another pixel's α fails."""
+    at = probe_inputs(n_tiles=n_tiles, device=cuda_device, spread=spread)[leg]
     before = anatomy.launches[f"bf16_probe_{leg}"]
     out = anatomy.bf16_probe(at)
     ref = anatomy.bf16_probe_plain(at)
     torch.cuda.synchronize()
     assert anatomy.launches[f"bf16_probe_{leg}"] == before + 1
-    assert out.shape == (8, 1, 1024) and float(ref.max()) > 100
+    assert out.shape == (n_tiles, 1, 1024)
+    if spread:
+        assert float((ref.view(n_tiles, -1, 8) > 0).any(-1).float().mean()) \
+            > 0.97
+    else:
+        assert float(ref.max()) > 100
     assert _tile_rel_err(out, ref) <= (1e-5 if leg == "f32" else 2.0 ** -6)

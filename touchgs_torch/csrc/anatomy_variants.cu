@@ -14,30 +14,37 @@
 //   noexp       Σ α with exp2 replaced by 1 − 0.25·σ̃ under the same mask;
 //               T stays 1
 //
-// The pixel centres, the pre-scaled conics, the thresholds and the rounding
-// of σ̃ and α are K2's (eval_sigma/eval_alpha in composite_common.cuh), and
-// the file is built with K2's flags, so the differences between the modes'
-// times attribute K2's time.
+// The thread shape, the staging, the row loads, the rounding of σ̃ and α
+// (row_sigma, row_alpha in composite_common.cuh) and the build flags are
+// K2's, so the differences between the modes' times, and between `full`
+// and K2 without its exit, attribute K2's time.
 //
 // fp32 operations per (entry, pixel), counted from this source (each
 // +, −, ×, unary −, min, compare, && and select is one, exp2f is one; an
-// FMA counts two, as the card's 67 TFLOP/s peak counts it):
-//   α (eval_alpha): mx, my 2; dx, dy 2; σ̃ 8; −σ̃ 1; exp2f 1; op·e 1; min 1;
-//   mask 4 (σ̃ ≥ 0, α ≥ thr, &&, select)                           = 20
-//   alpha_only: α + Σ                                              = 21
-//   noexp: α with (−σ̃, exp2f) replaced by (0.25·σ̃, 1 −) + Σ         = 21
-//   no_mxu: α + w = (T·p)·α 2 + Σ 1 + p ·= (1 − α) 2               = 25
-//   full: no_mxu + R, G, B, D += w·v 8                             = 33
-// (ops/anatomy.py OPS_PER_PAIR holds the same table.)
+// FMA counts two, as the card's 67 TFLOP/s peak counts it; mx − ox and
+// my − oy are taken once per entry in the staging):
+//   α (row_alpha): dx, dy 2; σ̃ 8; −σ̃ 1; exp2f 1; op·e 1; min 1;
+//   mask 4 (σ̃ ≥ 0, α ≥ thr, &&, select)                           = 18
+//   alpha_only: α + Σ 1                                            = 19
+//   noexp: α with (−σ̃, exp2f) replaced by (0.25·σ̃, 1 −) + Σ 1      = 19
+//   no_mxu: α + w = (T·p)·α 2 + Σ 1 + p ·= (1 − α) 2               = 23
+//   full: no_mxu + R, G, B, D += w·v 4 FMAs 8                      = 31
+// (ops/anatomy.py OPS_PER_PAIR holds the same table; a test parses it.)
 //
-// Bound on an H100: operations, as K2's.
+// Bound on an H100: operations, as K2's.  The α chain has no FMA (every
+// product and sum is rounded on its own), so at one fp32 instruction per
+// lane and clock a perfect kernel reaches about half the 67 TFLOP/s that
+// the bound counts.
 //
-// Design: K2's.  One block per tile, one thread per pixel; each chunk's rows
-// are staged once in shared memory and every thread walks them in order.
-// The trap in `full`: it stores only ΣA, so the compiler would delete the R,
-// G, B and D accumulations and `full` would time `no_mxu`.  They are stored
-// into a scratch output (n_tiles, 4, npix) that the wrapper allocates and
-// drops, so their FMAs stay in the code.
+// Design: K2's.  P pixels per thread (pixels_per_thread: 4 for 32x32
+// tiles), npix / P threads a block, several tiles resident per SM.  Each
+// chunk's rows are staged once in shared memory with mx − ox and my − oy
+// already taken (stage_rows), and every thread walks them in order: each row
+// is read with three 16-byte loads and serves its P pixels.  The trap in
+// `full`: it stores only ΣA, so the compiler would delete the R, G, B and D
+// accumulations and `full` would time `no_mxu`.  They are stored into a
+// scratch output (n_tiles, 4, npix) that the wrapper allocates and drops, so
+// their FMAs stay in the code.
 #include <cuda_runtime.h>
 
 #include "composite_common.cuh"
@@ -48,99 +55,120 @@ using namespace touchgs;
 
 enum Mode : int { kFull = 0, kNoMxu = 1, kAlphaOnly = 2, kNoExp = 3 };
 
-template <int kMode>
-__global__ void __launch_bounds__(1024, 1)
+template <int kMode, int P>
+__global__ void __launch_bounds__(1024 / P, P == 4 ? 3 : 1)
 anatomy_kernel(const int* __restrict__ n_chunks,
                const int* __restrict__ tile_ids,
                const float* __restrict__ attrs, float* __restrict__ out,
                float* __restrict__ scratch, int th, int tw, int k_tile,
                int k_chunk, int n_tx, float alpha_clip, float alpha_thr) {
-  extern __shared__ float s_attr[];  // k_chunk rows of kA floats
+  extern __shared__ __align__(16) float s_attr[];  // k_chunk rows of kA
   const int t = blockIdx.x;
   const int q = threadIdx.x;
-  const int npix = blockDim.x;
+  const int S = blockDim.x;  // threads; pixel stride
+  const int npix = S * P;
 
   const int tid = tile_ids[t];
   const float ox = static_cast<float>((tid % n_tx) * tw);
   const float oy = static_cast<float>((tid / n_tx) * th);
-  const float px = static_cast<float>(q % tw) + 0.5f;
-  const float py = static_cast<float>(q / tw) + 0.5f;
   const int nch = min(n_chunks[t], k_tile / k_chunk);
   const float* tile_attr = attrs + static_cast<size_t>(t) * k_tile * kA;
 
-  float T = 1.f;
-  float acc = 0.f;
-  float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f, acc_d = 0.f;
+  float px[P], py[P], T[P], acc[P], acc_r[P], acc_g[P], acc_b[P], acc_d[P];
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    const int pix = q + j * S;
+    px[j] = static_cast<float>(pix % tw) + 0.5f;
+    py[j] = static_cast<float>(pix / tw) + 0.5f;
+    T[j] = 1.f;
+    acc[j] = acc_r[j] = acc_g[j] = acc_b[j] = acc_d[j] = 0.f;
+  }
   for (int c = 0; c < nch; ++c) {
-    const float* src = tile_attr + static_cast<size_t>(c) * k_chunk * kA;
-    for (int i = q; i < k_chunk * kA; i += npix) s_attr[i] = src[i];
+    stage_rows(s_attr, tile_attr + static_cast<size_t>(c) * k_chunk * kA,
+               k_chunk * kA, q, S, ox, oy);
     __syncthreads();
 
-    float p = 1.f;
+    float p[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) p[j] = 1.f;
     for (int e = 0; e < k_chunk; ++e) {
-      const float* a = s_attr + e * kA;
-      float alpha;
-      if constexpr (kMode == kNoExp) {
-        float dx, dy;
-        const float sigma = eval_sigma(a, px, py, ox, oy, dx, dy);
-        // the stand-in for exp2, rounded as its plain version rounds it
-        const float expns = __fsub_rn(1.f, __fmul_rn(0.25f, sigma));
-        alpha = fminf(alpha_clip, __fmul_rn(a[kOP], expns));
-        if (!(sigma >= 0.f && alpha >= alpha_thr)) alpha = 0.f;
-      } else {
-        float opx, expns, dx, dy;
-        eval_alpha(a, px, py, ox, oy, alpha_clip, alpha_thr, alpha, opx,
-                   expns, dx, dy);
-      }
-      if constexpr (kMode == kAlphaOnly || kMode == kNoExp) {
-        acc += alpha;
-      } else {
-        const float w = __fmul_rn(__fmul_rn(T, p), alpha);
-        if constexpr (kMode == kFull) {
-          acc_r += w * a[kR];
-          acc_g += w * a[kG];
-          acc_b += w * a[kB];
-          acc_d += w * a[kZ];
+      const Row a = load_row(s_attr + e * kA);
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        float alpha;
+        if constexpr (kMode == kNoExp) {
+          float dx, dy;
+          const float sigma = row_sigma(a, px[j], py[j], dx, dy);
+          // the stand-in for exp2, rounded as its plain version rounds it
+          const float expns = __fsub_rn(1.f, __fmul_rn(0.25f, sigma));
+          alpha = fminf(alpha_clip, __fmul_rn(a.op, expns));
+          if (!(sigma >= 0.f && alpha >= alpha_thr)) alpha = 0.f;
+        } else {
+          float opx, expns, dx, dy;
+          alpha = row_alpha(a, px[j], py[j], alpha_clip, alpha_thr, opx,
+                            expns, dx, dy);
         }
-        acc += w;
-        p *= 1.f - alpha;
+        if constexpr (kMode == kAlphaOnly || kMode == kNoExp) {
+          acc[j] += alpha;
+        } else {
+          const float w = __fmul_rn(__fmul_rn(T[j], p[j]), alpha);
+          if constexpr (kMode == kFull) {
+            acc_r[j] += w * a.r;
+            acc_g[j] += w * a.g;
+            acc_b[j] += w * a.b;
+            acc_d[j] += w * a.z;
+          }
+          acc[j] += w;
+          p[j] *= 1.f - alpha;
+        }
       }
     }
-    T *= p;  // p stays 1 in the α-only modes
+#pragma unroll
+    for (int j = 0; j < P; ++j) T[j] *= p[j];  // p stays 1 in the α-only modes
     __syncthreads();  // every warp is done with the chunk before the next
   }
 
   float* o = out + static_cast<size_t>(t) * 2 * npix + q;
-  o[0] = acc;
-  o[npix] = T;
-  if constexpr (kMode == kFull) {
-    float* s = scratch + static_cast<size_t>(t) * 4 * npix + q;
-    s[0 * npix] = acc_r;
-    s[1 * npix] = acc_g;
-    s[2 * npix] = acc_b;
-    s[3 * npix] = acc_d;
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    o[j * S] = acc[j];
+    o[npix + j * S] = T[j];
+    if constexpr (kMode == kFull) {
+      float* s = scratch + static_cast<size_t>(t) * 4 * npix + q + j * S;
+      s[0 * npix] = acc_r[j];
+      s[1 * npix] = acc_g[j];
+      s[2 * npix] = acc_b[j];
+      s[3 * npix] = acc_d[j];
+    }
   }
 }
 
+size_t smem_bytes(int k_chunk) {
+  return static_cast<size_t>(k_chunk) * kA * sizeof(float);
+}
+
 template <int kMode>
-int launch(const int* n_chunks, const int* tile_ids, const float* attrs,
-           float* out, float* scratch, int n_tiles, int th, int tw,
-           int k_tile, int k_chunk, int n_tx, float alpha_clip,
-           float alpha_thr, cudaStream_t stream) {
-  const int npix = th * tw;
-  const size_t smem = static_cast<size_t>(k_chunk) * kA * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        anatomy_kernel<kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+const void* instance(int npix) {
+  const int P = pixels_per_thread(npix);
+  return P == 4   ? reinterpret_cast<const void*>(anatomy_kernel<kMode, 4>)
+         : P == 2 ? reinterpret_cast<const void*>(anatomy_kernel<kMode, 2>)
+                  : reinterpret_cast<const void*>(anatomy_kernel<kMode, 1>);
+}
+
+// The kernel of `mode` for npix-pixel tiles, or null for an unknown mode.
+const void* instance(int npix, int mode) {
+  switch (mode) {
+    case kFull:
+      return instance<kFull>(npix);
+    case kNoMxu:
+      return instance<kNoMxu>(npix);
+    case kAlphaOnly:
+      return instance<kAlphaOnly>(npix);
+    case kNoExp:
+      return instance<kNoExp>(npix);
+    default:
+      return nullptr;
   }
-  if (n_tiles > 0) {
-    anatomy_kernel<kMode><<<n_tiles, npix, smem, stream>>>(
-        n_chunks, tile_ids, attrs, out, scratch, th, tw, k_tile, k_chunk,
-        n_tx, alpha_clip, alpha_thr);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -155,25 +183,21 @@ extern "C" int anatomy_variants_launch(const int* n_chunks,
                                        int k_chunk, int n_tx,
                                        float alpha_clip, float alpha_thr,
                                        void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kFull:
-      return launch<kFull>(n_chunks, tile_ids, attrs, out, scratch, n_tiles,
-                           th, tw, k_tile, k_chunk, n_tx, alpha_clip,
-                           alpha_thr, s);
-    case kNoMxu:
-      return launch<kNoMxu>(n_chunks, tile_ids, attrs, out, scratch, n_tiles,
-                            th, tw, k_tile, k_chunk, n_tx, alpha_clip,
-                            alpha_thr, s);
-    case kAlphaOnly:
-      return launch<kAlphaOnly>(n_chunks, tile_ids, attrs, out, scratch,
-                                n_tiles, th, tw, k_tile, k_chunk, n_tx,
-                                alpha_clip, alpha_thr, s);
-    case kNoExp:
-      return launch<kNoExp>(n_chunks, tile_ids, attrs, out, scratch, n_tiles,
-                            th, tw, k_tile, k_chunk, n_tx, alpha_clip,
-                            alpha_thr, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const int npix = th * tw;
+  const void* kernel = instance(npix, mode);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  void* args[] = {&n_chunks, &tile_ids, &attrs,  &out,  &scratch,
+                  &th,       &tw,       &k_tile, &k_chunk, &n_tx,
+                  &alpha_clip, &alpha_thr};
+  return launch_tiles(kernel, args, n_tiles, npix, smem_bytes(k_chunk),
+                      stream);
+}
+
+// launch_info of the kernel of `mode` (variant) for npix-pixel tiles and
+// k_chunk-entry chunks.
+extern "C" int anatomy_variants_info(int npix, int k_chunk, int variant,
+                                     int* out) {
+  const void* kernel = instance(npix, variant);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_info(kernel, npix, smem_bytes(k_chunk), out);
 }

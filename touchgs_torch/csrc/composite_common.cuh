@@ -23,50 +23,13 @@ constexpr int kRowT = 5, kRowDone = 6, kRows = 8;
 constexpr float kSatEps = 1e-4f;  // tile-wide saturation threshold
 constexpr float kLn2 = 0.6931471805599453f;
 
-// α for one (entry, pixel), exactly the JAX kernels' `_alpha_exact`:
-// dx, dy are exact differences from the pixel centre; kept where σ̃ ≥ 0 and
-// α ≥ alpha_thr, clipped at alpha_clip.  exp2f is the accurate CUDA math
-// function (the build passes no fast-math flag).
-//
-// σ̃ and op·2^(−σ̃) are rounded after every operation (__fmul_rn and
-// __fadd_rn are never contracted into FMAs), in the order the plain PyTorch
-// version evaluates them.  α is then bit-identical between the two on the
-// card, so a pair sitting on the 1/255 keep threshold cannot fall on
-// different sides of it, and the tile-wide exit gate reads the same T.
-// eval_sigma is its first half, σ̃ with dx and dy, which K5's noexp mode
-// (anatomy_variants.cu) shares.
-__device__ __forceinline__ float eval_sigma(const float* a, float px,
-                                            float py, float ox, float oy,
-                                            float& dx, float& dy) {
-  const float mx = a[kMX] - ox;
-  const float my = a[kMY] - oy;
-  dx = px - mx;
-  dy = py - my;
-  return __fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(a[kCA], dx), dx),
-                             __fmul_rn(__fmul_rn(a[kCC], dy), dy)),
-                   __fmul_rn(__fmul_rn(a[kCB], dx), dy));
-}
-
-__device__ __forceinline__ void eval_alpha(const float* a, float px, float py,
-                                           float ox, float oy,
-                                           float alpha_clip, float alpha_thr,
-                                           float& alpha, float& opx,
-                                           float& expns, float& dx,
-                                           float& dy) {
-  const float sigma = eval_sigma(a, px, py, ox, oy, dx, dy);
-  expns = exp2f(-sigma);
-  opx = __fmul_rn(a[kOP], expns);
-  alpha = fminf(alpha_clip, opx);
-  if (!(sigma >= 0.f && alpha >= alpha_thr)) alpha = 0.f;
-}
-
 __device__ __forceinline__ float warp_max(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
   return v;
 }
 
-// Pixels per thread of K2 and K3: 4 where npix / 4 threads make whole warps,
+// Pixels per thread of K2, K3 and K5: 4 where npix / 4 threads make whole warps,
 // else 2, else 1 (every multiple of 32 takes one of them).  Thread q of the
 // npix / P threads owns pixels q, q + S, …, q + (P − 1)·S with S = npix / P,
 // so each of its P loads of a per-pixel row is coalesced across the warp.
@@ -84,7 +47,7 @@ inline cudaError_t allow_smem(const void* kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
-// Launch a K2 or K3 instance for npix-pixel tiles: one block per tile of
+// Launch a K2, K3 or K5 instance for npix-pixel tiles: one block per tile of
 // npix / pixels_per_thread(npix) threads.  Returns the CUDA error.
 inline int launch_tiles(const void* kernel, void** args, int n_tiles,
                         int npix, size_t smem, void* stream) {
@@ -96,7 +59,7 @@ inline int launch_tiles(const void* kernel, void** args, int n_tiles,
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-// The launch shape of a K2 or K3 instance for npix-pixel tiles with `smem`
+// The launch shape of a K2, K3 or K5 instance for npix-pixel tiles with `smem`
 // dynamic shared bytes: out = [pixels per thread, threads, registers,
 // resident blocks per SM, shared bytes].  Returns the CUDA error.
 inline int launch_info(const void* kernel, int npix, size_t smem, int* out) {
@@ -119,7 +82,7 @@ inline int launch_info(const void* kernel, int npix, size_t smem, int* out) {
 
 // A staged attribute row, read as three 16-byte shared-memory loads.  mx and
 // my are tile-local (mx − ox, my − oy), rounded once when the chunk is
-// staged (stage_rows): the same subtraction eval_sigma does per pixel.
+// staged (stage_rows): the subtraction the plain version does per pixel.
 struct Row {
   float mx, my, ca, cb, cc, op, z, r, g, b;
 };
@@ -145,18 +108,31 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src, int n,
   }
 }
 
-// α for one (entry, pixel) of a staged row: eval_alpha's operations in its
-// order, from the tile-local mx, my, so α is bit-identical to eval_alpha's.
+// σ̃ for one (entry, pixel) of a staged row, with dx and dy: exact
+// differences from the pixel centre, then every product and sum rounded on
+// its own (__fmul_rn and __fadd_rn are never contracted into FMAs), in the
+// order the plain PyTorch version evaluates them (rasterize_plain._sigma).
+// K5's noexp mode (anatomy_variants.cu) uses it alone.
+__device__ __forceinline__ float row_sigma(const Row& a, float px, float py,
+                                           float& dx, float& dy) {
+  dx = px - a.mx;
+  dy = py - a.my;
+  return __fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(a.ca, dx), dx),
+                             __fmul_rn(__fmul_rn(a.cc, dy), dy)),
+                   __fmul_rn(__fmul_rn(a.cb, dx), dy));
+}
+
+// α for one (entry, pixel) of a staged row, exactly the JAX kernels'
+// `_alpha_exact`: kept where σ̃ ≥ 0 and α ≥ alpha_thr, clipped at
+// alpha_clip.  exp2f is the accurate CUDA math function (the build passes no
+// fast-math flag).  α is then bit-identical to the plain version's on the
+// card, so a pair sitting on the 1/255 keep threshold cannot fall on
+// different sides of it, and K2's tile-wide exit gate reads the same T.
 __device__ __forceinline__ float row_alpha(const Row& a, float px, float py,
                                            float alpha_clip, float alpha_thr,
                                            float& opx, float& expns,
                                            float& dx, float& dy) {
-  dx = px - a.mx;
-  dy = py - a.my;
-  const float sigma =
-      __fadd_rn(__fadd_rn(__fmul_rn(__fmul_rn(a.ca, dx), dx),
-                          __fmul_rn(__fmul_rn(a.cc, dy), dy)),
-                __fmul_rn(__fmul_rn(a.cb, dx), dy));
+  const float sigma = row_sigma(a, px, py, dx, dy);
   expns = exp2f(-sigma);
   opx = __fmul_rn(a.op, expns);
   const float alpha = fminf(alpha_clip, opx);

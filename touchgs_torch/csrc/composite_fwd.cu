@@ -26,8 +26,8 @@
 // SM.  Each chunk's rows are staged once in shared memory with mx − ox and
 // my − oy already taken (stage_rows), and every thread walks them in order:
 // each row is read with three 16-byte loads and serves its P pixels.  α's
-// own operations and their order are eval_alpha's (row_alpha), so α is
-// bit-identical to the plain version's and so are T and the exit gate's
+// own operations and their order are the plain version's (row_alpha, in
+// composite_common.cuh), so α is bit-identical to the plain version's and so are T and the exit gate's
 // decisions; the R, G, B, D sums are fp32 FMAs (the K=8 contractions the
 // TPU ran on its matrix unit at HIGHEST precision, never TF32).  Within a
 // chunk the transmittance is T·p with p the running product of (1 − α), as

@@ -4,12 +4,13 @@
 Ports of the two Pallas kernels of ``tools/exp_kernel_anatomy.py``:
 
 - **K5** ``variant`` (``csrc/anatomy_variants.cu``, replacing
-  ``make_variant``, :78-135): K2 stripped down with no early exit, in the
-  modes ``full``, ``no_mxu``, ``alpha_only`` and ``noexp``.  Output
-  (n_tiles, 2, npix) = [Σ-row, T].
+  ``make_variant``, :78-135): K2 stripped down with no early exit, in K2's
+  thread shape, in the modes ``full``, ``no_mxu``, ``alpha_only`` and
+  ``noexp``.  Output (n_tiles, 2, npix) = [Σ-row, T].
 - **K6** ``bf16_probe`` (``csrc/bf16_probe.cu``, replacing ``bf16_probe``'s
   ``make(dtype)``, :188-213): the α chain summed over 512 rows, in f32 or
-  in packed bf16.  Output (n_tiles, 1, 1024) f32.
+  in packed bf16 with the chunk sums on the tensor cores.  Output
+  (n_tiles, 1, 1024) f32.
 
 Each wrapper dispatches on its tensors' device: on the CPU it runs the plain
 version here; on CUDA it launches its kernel or raises.  ``launches``
@@ -26,11 +27,12 @@ from touchgs_torch.ops.cuda_build import check_tensor, current_stream, on_cuda
 from touchgs_torch.ops.rasterize_cuda import _check_geometry
 
 MODES = ("full", "no_mxu", "alpha_only", "noexp")
-# fp32 operations per (entry, pixel), counted from csrc/anatomy_variants.cu
-OPS_PER_PAIR = {"full": 33, "no_mxu": 25, "alpha_only": 21, "noexp": 21}
-# per (row, pixel) of the bf16 probe, counted from csrc/bf16_probe.cu: the
-# α chain (19, in the working type) and the chunk sum (1, in f32)
-PROBE_CHAIN_OPS, PROBE_SUM_OPS = 19, 1
+# fp32 operations per (entry, pixel), counted in csrc/anatomy_variants.cu's
+# header comment
+OPS_PER_PAIR = {"full": 31, "no_mxu": 23, "alpha_only": 19, "noexp": 19}
+# per (row, pixel) of the bf16 probe, counted in csrc/bf16_probe.cu's header
+# comment: the α chain (in the working type) and the chunk sum (in f32)
+PROBE_CHAIN_OPS, PROBE_SUM_OPS = 18, 1
 PROBE_ROWS, PROBE_CHUNK, PROBE_COLS, PROBE_NPIX = 512, 128, 16, 1024
 PROBE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
 
@@ -142,6 +144,8 @@ def bf16_probe(attrs: torch.Tensor) -> torch.Tensor:
     n_tiles = attrs.shape[0]
     check_tensor(attrs, "attrs", attrs.dtype,
                  (n_tiles, PROBE_ROWS, PROBE_COLS))
+    if attrs.data_ptr() % 16:  # the kernel reads rows with 16-byte loads
+        raise ValueError("attrs: want a 16-byte aligned start")
     out = torch.empty((n_tiles, 1, PROBE_NPIX), dtype=torch.float32,
                       device=attrs.device)
     cuda_build.call("bf16_probe", attrs.data_ptr(), out.data_ptr(),

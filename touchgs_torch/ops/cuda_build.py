@@ -139,24 +139,43 @@ def sass_counts(name: str) -> dict:
             for fn, ins in sass(name).items()}
 
 
+# The opcodes by which an entry loop is found, in order: exp2 (MUFU.EX2, or
+# a variant of it such as a packed bf16 form) where the kernel has one, else
+# the α clip's min (FMNMX: K5's noexp has no exp2).
+LOOP_MARKERS = ("MUFU.EX2", "FMNMX")
+
+
+def is_op(op: str, name: str) -> bool:
+    """True when the SASS opcode ``op`` is ``name`` or a variant of it
+    (``MUFU.EX2.F16x2`` is a ``MUFU.EX2``)."""
+    return op == name or op.startswith(name + ".")
+
+
 def sass_loop_counts(name: str, src: Path = CSRC) -> dict:
-    """{kernel function: Counter of the SASS opcodes of its innermost loop
-    that holds every MUFU.EX2 (the compositing kernels' entry loop, one
-    exp2 a pair)}: the body from a backward branch's target to the branch.
-    Functions without such a loop are left out."""
+    """{kernel function: Counter of the SASS opcodes of its entry loop}: of
+    the innermost loops (from a backward branch's target to the branch)
+    that hold instructions of the function's marker, the first of
+    LOOP_MARKERS it has, the one that holds the most of them: where the
+    compiler unrolled the entry loop and left a remainder loop beside it,
+    the unrolled body.  Functions without such a loop are left out."""
     loops = {}
     for fn, ins in sass(name, src).items():
-        marks = [a for a, op, _ in ins if op == "MUFU.EX2"]
+        marker = next((m for m in LOOP_MARKERS
+                       if any(is_op(op, m) for _, op, _ in ins)), None)
+        marks = [a for a, op, _ in ins if marker and is_op(op, marker)]
         spans = []
         for addr, op, rest in ins:
             m = re.search(r"0x([0-9a-f]+)", rest)
-            if not (marks and op.startswith("BRA") and m):
-                continue
-            target = int(m.group(1), 16)
-            if target <= min(marks) and addr >= max(marks):
-                spans.append((addr - target, target, addr))
-        if spans:
-            _, lo, hi = min(spans)
+            if op.startswith("BRA") and m and int(m.group(1), 16) <= addr:
+                lo = int(m.group(1), 16)
+                n = sum(lo <= a <= addr for a in marks)
+                if n:
+                    spans.append((lo, addr, n))
+        inner = [(lo, hi, n) for lo, hi, n in spans
+                 if not any(lo <= o[0] and o[1] <= hi and o[:2] != (lo, hi)
+                            for o in spans)]
+        if inner:
+            lo, hi, _ = max(inner, key=lambda s: (s[2], s[0] - s[1]))
             loops[fn] = collections.Counter(op for a, op, _ in ins
                                             if lo <= a <= hi)
     return loops
@@ -180,11 +199,13 @@ INFO_KEYS = ("pixels_per_thread", "threads", "registers", "blocks_per_sm",
 
 
 def kernel_info(name: str, npix: int, k_chunk: int, variant: int = 0) -> dict:
-    """Launch shape of a compositing kernel (``composite_fwd`` with
-    ``variant`` its early_exit flag, or ``composite_bwd``) for tiles of
-    ``npix`` pixels: pixels per thread, threads a block, registers a thread,
-    resident blocks per SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)
-    and shared bytes a block."""
+    """Launch shape of a kernel in K2's thread shape (``composite_fwd`` with
+    ``variant`` its early_exit flag, ``composite_bwd``, or
+    ``anatomy_variants`` with ``variant`` the index of its mode in
+    ``anatomy.MODES``) for tiles of ``npix`` pixels: pixels per thread,
+    threads a block, registers a thread, resident blocks per SM
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) and shared bytes a
+    block."""
     fn = getattr(ctypes.CDLL(str(library(name))), f"{name}_info")
     fn.argtypes = [_I, _I, _I, _P]
     fn.restype = ctypes.c_int

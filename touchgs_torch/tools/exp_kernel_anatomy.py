@@ -104,14 +104,21 @@ def variant(x: AnatomyInputs, mode: str) -> torch.Tensor:
     return anatomy.variant(mode, x.nc, x.tids, x.at, *x.geom)
 
 
-def probe_inputs(n_tiles: int = PROBE_TILES, device="cuda") -> dict:
+def probe_inputs(n_tiles: int = PROBE_TILES, device="cuda",
+                 spread: bool = False) -> dict:
     """The probe's rows, ``default_rng(0).uniform(0.1, 1.0)``, in f32 and
-    bf16 (as ``tools/exp_kernel_anatomy.py:182-186,215-216``)."""
+    bf16 (as ``tools/exp_kernel_anatomy.py:182-186,215-216``).  With
+    ``spread`` each row's centre lies on the pixels' line instead (mx ~
+    U(0, 1024), my = mx / 2 + U(−1, 1)), so α > 0 reaches every part of
+    the tile, not only its first pixels: a check of which pixel each
+    thread sums."""
     rng = np.random.default_rng(0)
-    at32 = torch.as_tensor(
-        rng.uniform(0.1, 1.0, (n_tiles, anatomy.PROBE_ROWS,
-                               anatomy.PROBE_COLS)).astype(np.float32),
-        device=device)
+    at = rng.uniform(0.1, 1.0, (n_tiles, anatomy.PROBE_ROWS,
+                                anatomy.PROBE_COLS))
+    if spread:
+        at[..., 0] = rng.uniform(0.0, anatomy.PROBE_NPIX, at.shape[:2])
+        at[..., 1] = at[..., 0] / 2 + rng.uniform(-1.0, 1.0, at.shape[:2])
+    at32 = torch.as_tensor(at.astype(np.float32), device=device)
     return {"f32": at32, "bf16": at32.to(torch.bfloat16)}
 
 
