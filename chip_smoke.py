@@ -34,6 +34,19 @@ Phases (any failure raises, and the script exits nonzero with no result):
    alone); then one lossless ``Trainer.render_view``.
 4. Where the step's device time goes: three more steps under
    torch.profiler, the kernels by device time and the busy share.
+4a. The default render path, the scan path (``use_pallas=False``, torch
+   ops, no kernel of its own): at 96x64 against the dense oracle, one
+   flagship forward against the tile kernels with and without their exit
+   (within rgb/acc 1e-4 and depth 1e-3 without it), then
+   ``Trainer.run`` with the default ``RasterizeConfig()``, 2 warm-up and 5
+   timed steps, with the launch counters set to 0 just before and read
+   just after (no launch of K1-K3); its median step and peak memory, and
+   two more steps under torch.profiler.
+4b. The scale demo, ``touchgs_torch.tools.train_scale_demo.main`` at
+   800x800 with its 100k GT Gaussians on a short schedule (``DEMO_ARGS``):
+   at least two refines, one opacity reset and one capacity growth, K1
+   with rows, K2 and K3 each launched (counters set to 0 just before),
+   lossless GT renders and finite eval metrics.
 5. The profiling path: ``python -m touchgs_torch.tools.exp_kernel_anatomy
    --bf16``'s work (K4, the flagship's tiles at k_chunk 128, K2 with and
    without its exit, the four K5 ablations, the two K6 probe legs), with
@@ -94,6 +107,16 @@ PROFILE_STEPS = 3   # training steps under torch.profiler, after the timed ones
 HOST_CALLS = 10_000  # calls a round of the host-cost table
 K4_CALLS = 200       # CUDA-event medians of K4 and torch.mul
 PROFILE_TOP = 15    # kernels listed by device time
+SCAN_WARMUP, SCAN_TIMED = 2, 5   # scan-path training steps
+SCAN_PROFILED = 2                # and under torch.profiler
+# the scale demo's short schedule: 2048 seeds start the capacity at 4096;
+# refines at steps 300 to 600 (refine stops at 720 - 100), densifying at
+# 300, 400 and 600 and pruning at each; an opacity reset at 450.  Each
+# refine first grows the capacity if more than 60% of it is alive; on an
+# H100 one densify left 2413 of 4096 alive (59%), so three get a chance
+DEMO_ARGS = ["--steps", "720", "--polish", "100", "--seed-points", "2048",
+             "--reset-opacity-every", "450", "--views", "8",
+             "--render-dir", ""]
 
 
 def bound(nbytes: float, fp32_ops: float = 0.0,
@@ -397,7 +420,8 @@ def flagship_inputs(dev):
     return dict(rcfg=rcfg, bins=bins, attrs=attrs, n_tiles=n_tiles,
                 k_tile=k_tile, k_chunk=k_chunk, capped=capped,
                 n_chunks=n_chunks, tile_ids=tile_ids, N=CAPACITY,
-                th=rcfg.tile_h, tw=rcfg.tile_w, n_tx=bins.n_tiles_x)
+                th=rcfg.tile_h, tw=rcfg.tile_w, n_tx=bins.n_tiles_x,
+                proj=proj, colors=colors, opac=opac)
 
 
 def phase_kernels(dev) -> list:
@@ -625,13 +649,12 @@ def check_forward_without_exit(nc, tids, attrs_tiled, geom) -> tuple:
     return max(err_rgba, err_d), t, t_p
 
 
-def phase_reference(dev) -> None:
-    """A small scene through the tile kernels against the dense oracle."""
+def small_scene(dev) -> tuple:
+    """300 seeded Gaussians projected at 96x64: (proj, colors, opacities,
+    width, height, config)."""
     from touchgs_torch.config import RasterizeConfig
     from touchgs_torch.data.cameras import Camera
     from touchgs_torch.ops.projection import project_gaussians
-    from touchgs_torch.ops.rasterize_cuda import rasterize_cuda
-    from touchgs_torch.ops.rasterize_ref import rasterize_dense
 
     rng = np.random.default_rng(5)
     n, w, h = 300, 96, 64
@@ -649,15 +672,30 @@ def phase_reference(dev) -> None:
         proj = project_gaussians(means, quats, scales, cam.w2c, cam.fx,
                                  cam.fy, cam.cx, cam.cy, w, h, cfg,
                                  opacities=opac)
-        out = rasterize_cuda(proj, colors, opac, w, h, cfg)
-        ref = rasterize_dense(proj, colors, opac, w, h, cfg)
+    return proj, colors, opac, w, h, cfg
+
+
+def against_dense(name: str, out, ref, n: int, w: int, h: int) -> None:
+    """``out`` within rgb/acc 1e-4 and depth 1e-3 of the dense oracle."""
     e_rgb = float((out.rgb - ref.rgb).abs().max())
     e_acc = float((out.acc - ref.acc).abs().max())
     e_d = float((out.depth - ref.depth).abs().max())
-    print(f"tile kernels vs dense oracle ({w}x{h}, {n} gaussians): rgb "
+    print(f"{name} vs dense oracle ({w}x{h}, {n} gaussians): rgb "
           f"{e_rgb:.2e}, acc {e_acc:.2e}, depth {e_d:.2e}")
     check(e_rgb <= 1e-4 and e_acc <= 1e-4 and e_d <= 1e-3,
-          "tile kernels disagree with the dense oracle")
+          f"{name} disagrees with the dense oracle")
+
+
+def phase_reference(dev) -> None:
+    """A small scene through the tile kernels against the dense oracle."""
+    from touchgs_torch.ops.rasterize_cuda import rasterize_cuda
+    from touchgs_torch.ops.rasterize_ref import rasterize_dense
+
+    proj, colors, opac, w, h, cfg = small_scene(dev)
+    with torch.no_grad():
+        out = rasterize_cuda(proj, colors, opac, w, h, cfg)
+        ref = rasterize_dense(proj, colors, opac, w, h, cfg)
+    against_dense("tile kernels", out, ref, len(opac), w, h)
 
 
 def make_scene():
@@ -687,8 +725,8 @@ def make_scene():
 
 
 def phase_train(card: str):
-    """The main path; returns the launch counts of its 25 steps and the
-    trainer."""
+    """The main path; returns the launch counts of its 25 steps, the
+    trainer and the median step (ms)."""
     from touchgs_torch.config import ModelConfig, RasterizeConfig, TrainConfig
     from touchgs_torch.ops import rasterize_cuda as rc
     from touchgs_torch.train.trainer import Trainer
@@ -701,6 +739,7 @@ def phase_train(card: str):
         log_every=1,  # every step ends in a host read of its metrics
     )
     t0 = time.time()
+    torch.cuda.reset_peak_memory_stats()
     trainer = Trainer(scene, cfg)
     check(trainer.state.params.capacity == CAPACITY,
           f"capacity {trainer.state.params.capacity}, want {CAPACITY}")
@@ -708,8 +747,7 @@ def phase_train(card: str):
           f"{trainer.state.params.capacity}, alive "
           f"{int(trainer.state.params.num_alive)}")
 
-    for k in rc.launches:
-        rc.launches[k] = 0
+    zero_launches()
     first = trainer.run(WARMUP_STEPS)
     torch.cuda.synchronize()
     stamps = [time.perf_counter()]
@@ -747,10 +785,135 @@ def phase_train(card: str):
           "lossless render is not finite")
     print(f"render_view: lossless, rgb mean {float(out.rgb.mean()):.4f}, "
           f"lossy tiles {int(out.lossy_tiles)}")
-    return counts, trainer
+    return counts, trainer, med
 
 
-def phase_profile(trainer, steps: int = PROFILE_STEPS) -> None:
+def zero_launches() -> None:
+    from touchgs_torch.ops import rasterize_cuda as rc
+
+    for k in rc.launches:
+        rc.launches[k] = 0
+
+
+def phase_scan(dev, card: str, kernel_step_ms: float) -> None:
+    """The default render path, the scan path (``use_pallas=False``): at
+    96x64 against the dense oracle; one flagship forward against the tile
+    kernels (with their exit and without: the scan path has none); then
+    ``Trainer.run`` with the default ``RasterizeConfig()`` on the flagship
+    scene, SCAN_WARMUP + SCAN_TIMED steps with the launch counters set to 0
+    just before and read just after: no tile kernel may launch."""
+    from touchgs_torch.config import ModelConfig, TrainConfig
+    from touchgs_torch.ops import rasterize_cuda as rc
+    from touchgs_torch.ops.rasterize_ref import rasterize_dense
+    from touchgs_torch.ops.rasterize_tiled import rasterize_tiled
+    from touchgs_torch.train.trainer import Trainer
+
+    proj, colors, opac, w, h, cfg = small_scene(dev)
+    with torch.no_grad():
+        out = rasterize_tiled(proj, colors, opac, w, h, cfg)
+        ref = rasterize_dense(proj, colors, opac, w, h, cfg)
+    against_dense("scan path", out, ref, len(opac), w, h)
+
+    x = flagship_inputs(dev)
+    args = (x["proj"], x["colors"], x["opac"], WIDTH, HEIGHT, x["rcfg"])
+    kw = dict(bins=x["bins"], k_tile=x["k_tile"])
+
+    def scan():
+        return rasterize_tiled(*args, **kw)
+
+    with torch.no_grad():
+        out = scan()
+        for exit_ in (True, False):
+            ref = rc.rasterize_cuda(*args, **kw, early_exit=exit_)
+            torch.cuda.synchronize()
+            errs = [float((getattr(out, k) - getattr(ref, k)).abs().max())
+                    for k in ("rgb", "acc", "depth")]
+            print(f"scan path vs tile kernels {'with' if exit_ else 'without'}"
+                  f" their exit, flagship forward: rgb {errs[0]:.3e}, acc "
+                  f"{errs[1]:.3e}, depth {errs[2]:.3e}")
+            check(all(np.isfinite(errs)), "scan path: non-finite forward")
+        # without the exit both composite the same lists
+        check(errs[0] <= 1e-4 and errs[1] <= 1e-4 and errs[2] <= 1e-3,
+              "scan path disagrees with the tile kernels without their exit")
+        t_scan = median_ms(scan, 5, warmup=1)
+        t_kern = median_ms(lambda: rc.rasterize_cuda(*args, **kw), 5)
+    print(f"flagship forward, no grad: scan path {t_scan:.3f} ms, tile "
+          f"kernels {t_kern:.3f} ms")
+    del x, args, out, ref
+
+    scene = make_scene()
+    cfg = TrainConfig(model=ModelConfig(max_gaussians=CAPACITY, sh_degree=3),
+                      view_cache_bytes=1 << 30, log_every=1)
+    check(not cfg.model.rasterize.use_pallas, "the default is not the scan "
+          "path")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(scene, cfg)
+    zero_launches()
+    trainer.run(SCAN_WARMUP)
+    torch.cuda.synchronize()
+    stamps = [time.perf_counter()]
+    trainer.run(SCAN_WARMUP + SCAN_TIMED,
+                log_fn=lambda m: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    counts = dict(rc.launches)
+    step_ms = np.diff(stamps) * 1e3
+    med = float(np.median(step_ms))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [m["loss"] for m in trainer.history]
+    print(f"scan path train: losses {', '.join(f'{v:.6f}' for v in losses)}; "
+          f"launches {counts}")
+    print(f"scan path train: median step {med:.3f} ms over {SCAN_TIMED} steps "
+          f"(min {step_ms.min():.3f}, max {step_ms.max():.3f}), peak memory "
+          f"{peak:.2f} GiB; the tile kernels' median step {kernel_step_ms:.3f}"
+          f" ms in this run; on {card}")
+    check(len(step_ms) == SCAN_TIMED, f"{len(step_ms)} timed scan steps")
+    check(all(v == 0 for v in counts.values()),
+          f"the scan path launched tile kernels: {counts}")
+    check(all(np.isfinite(losses)), "scan path: non-finite loss")
+    check(all("lossy_tiles" not in m for m in trainer.history),
+          "the scan path reported lossy_tiles")
+    phase_profile(trainer, SCAN_PROFILED, "scan path profile")
+
+
+def phase_demo(card: str) -> None:
+    """``touchgs_torch.tools.train_scale_demo.main`` at 800x800 with its
+    100k GT Gaussians on a short schedule (DEMO_ARGS) that refines at least
+    twice, resets the opacities at least once and grows the capacity at
+    least once, each counted by the trainer; the launch counters set to 0
+    just before and read just after: K1 with rows, K2 and K3 each launch
+    (GT renders, training, lossless eval)."""
+    from touchgs_torch.ops import rasterize_cuda as rc
+    from touchgs_torch.tools import train_scale_demo
+
+    zero_launches()
+    t0 = time.time()
+    s = train_scale_demo.main(DEMO_ARGS)
+    torch.cuda.synchronize()
+    counts = dict(rc.launches)
+    ev = s["events"]
+    print(f"demo: {time.time() - t0:.1f} s on {card}; events {ev}; k_tile "
+          f"escalations {s['k_tile_escalations']}; lossy census "
+          f"{s['lossy_census']}; eval {s['eval']}, depth MAE "
+          f"{s['eval_depth_mae_m']} m; alive {s['final_alive_gaussians']}; "
+          f"launches {counts}")
+    check(ev["refine"] >= 2 and ev["reset_opacity"] >= 1 and ev["grow"] >= 1,
+          f"demo schedule: {ev}, want refine >= 2, reset >= 1, grow >= 1")
+    check(all(counts[k] >= 1 for k in ("slot_rows", "composite_fwd",
+                                       "composite_bwd")),
+          f"demo launches {counts}")
+    check(all(np.isfinite(v) for v in s["eval"].values())
+          and np.isfinite(s["eval_depth_mae_m"]),
+          f"demo eval not finite: {s['eval']}")
+    check(all(np.isfinite(v) for row in s["lossy_census"]["train"]
+              for v in row), "demo lossy census not finite")
+    check(s["lossy_census"]["gt_views"] == [0] * len(
+        s["lossy_census"]["gt_views"]) and s["lossy_census"]["gt_views"],
+          "demo GT renders lossy or not reported")
+
+
+def phase_profile(trainer, steps: int = PROFILE_STEPS,
+                  label: str = "profile") -> None:
     """Device time by kernel over a few more training steps, from
     torch.profiler, and the device's busy share of their wall time (the
     profiler slows the host, so the share under it is a lower bound)."""
@@ -769,7 +932,7 @@ def phase_profile(trainer, steps: int = PROFILE_STEPS) -> None:
     kernels.sort(key=lambda e: e.device_time_total, reverse=True)
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3
     per_step = sum(e.count for e in kernels) / steps
-    print(f"profile: {steps} steps, device busy {busy_ms / steps:.3f} ms per "
+    print(f"{label}: {steps} steps, device busy {busy_ms / steps:.3f} ms per "
           f"step of {wall_ms / steps:.3f} ms wall under the profiler "
           f"({100 * busy_ms / wall_ms:.1f}% busy); {per_step:.0f} device "
           f"operations per step, of {len(kernels)} distinct names")
@@ -1188,9 +1351,13 @@ def main() -> int:
     k4, loops = phase_build()
     kernels = phase_kernels(dev)
     phase_reference(dev)
-    counts, trainer = phase_train(card_name)
+    counts, trainer, step_ms = phase_train(card_name)
     phase_profile(trainer)
     del trainer
+    torch.cuda.empty_cache()
+    phase_scan(dev, card_name, step_ms)
+    torch.cuda.empty_cache()
+    phase_demo(card_name)
     torch.cuda.empty_cache()
     path_counts, x, probe = phase_anatomy_path()
     kernels += [k4] + phase_anatomy(x, probe, loops)

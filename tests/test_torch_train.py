@@ -63,10 +63,11 @@ def _scene(a, cameras_cls, scene_cls):
                      transform=np.eye(4)[:3], name="parity")
 
 
-def _cfg(mod, **kw):
+def _cfg(mod, use_pallas=True, **kw):
     return mod.TrainConfig(
-        model=mod.ModelConfig(max_gaussians=CAP, sh_degree=3,
-                              rasterize=mod.RasterizeConfig(use_pallas=True)),
+        model=mod.ModelConfig(
+            max_gaussians=CAP, sh_degree=3,
+            rasterize=mod.RasterizeConfig(use_pallas=use_pallas)),
         sh_degree_interval=1, log_every=1, seed=0, **kw)
 
 
@@ -90,14 +91,13 @@ def arrays():
     return _scene_arrays()
 
 
-def test_slice_matches_jax_trainer(arrays):
-    """5 steps of ``Trainer.run``; SH bands 0–3 all activate.  Per-step loss
-    and PSNR agree within rtol 1e-3: Adam normalises each gradient, so an
-    f32 summation-order difference in a near-zero gradient can move a
-    parameter by up to 2·lr."""
-    jt = jtr.Trainer(_scene(arrays, JCameras, JScene), _cfg(jcfg))
-    tt = ttr.Trainer(_scene(arrays, TCameras, TScene), _cfg(tcfg),
-                     device="cpu")
+def _run_both(arrays, use_pallas):
+    """``STEPS`` steps of ``Trainer.run`` in both packages from the JAX
+    trainer's initial state; each step's loss, PSNR, depth and SSIM loss
+    agree within rtol 1e-3.  Returns both logs."""
+    jt = jtr.Trainer(_scene(arrays, JCameras, JScene), _cfg(jcfg, use_pallas))
+    tt = ttr.Trainer(_scene(arrays, TCameras, TScene),
+                     _cfg(tcfg, use_pallas), device="cpu")
     tt.state = ttr.state_from_numpy(_leaves(jt.state), "cpu")
     assert tt.state.params.capacity == CAP
     jlog, tlog = [], []
@@ -113,6 +113,28 @@ def test_slice_matches_jax_trainer(arrays):
     print(f"measured relative gaps over {STEPS} steps: {gaps}")
     assert tt.state.step == int(jt.state.step) == STEPS
     assert int(tt.state.opt_state.count) == int(jt.state.opt_state.count)
+    return jlog, tlog
+
+
+def test_slice_matches_jax_trainer(arrays):
+    """5 steps of ``Trainer.run`` through the tile kernels; SH bands 0–3
+    all activate.  Per-step loss and PSNR agree within rtol 1e-3: Adam
+    normalises each gradient, so an f32 summation-order difference in a
+    near-zero gradient can move a parameter by up to 2·lr."""
+    _run_both(arrays, use_pallas=True)
+
+
+def test_scan_path_matches_jax_trainer(arrays):
+    """The same 5 steps on the default scan path (``use_pallas=False``):
+    no step reports ``lossy_tiles``, so the truncation guard's window stays
+    empty and reads 0.0, in both packages alike."""
+    assert not tcfg.RasterizeConfig().use_pallas  # the default path
+    jlog, tlog = _run_both(arrays, use_pallas=False)
+    for j, t in zip(jlog, tlog):
+        assert "lossy_tiles" not in t and "lossy_tiles" not in j
+        assert set(t) == set(j)
+        assert t.get("lossy_tiles_window_max", 0.0) == 0.0
+        assert "k_tile_escalated_to" not in t
 
 
 def test_one_step_gradients_match(arrays):
@@ -213,10 +235,6 @@ def test_out_of_slice_options_raise(arrays):
         ttr.Trainer(scene, dataclasses.replace(
             _cfg(tcfg), pose_opt=tcfg.PoseOptConfig(mode="SO3xR3")),
             device="cpu")
-    tt = ttr.Trainer(scene, tcfg.TrainConfig(
-        model=tcfg.ModelConfig(max_gaussians=CAP)), device="cpu")
-    with pytest.raises(NotImplementedError, match="use_pallas"):
-        tt.run(1)
 
 
 def test_default_device_is_cuda(arrays):

@@ -11,9 +11,13 @@ the CPU every kernel wrapper runs its plain PyTorch version instead.
 Subpackages
 -----------
 - ``touchgs_torch.data``    cameras and the in-memory ``Scene``
-- ``touchgs_torch.ops``     projection, SH, binning, compositing kernels, SSIM
+- ``touchgs_torch.ops``     projection, SH, binning, compositing kernels,
+                            the scan path, SSIM
 - ``touchgs_torch.models``  Gaussian parameters, splat model, densification
 - ``touchgs_torch.train``   fused Adam and the training loop
+- ``touchgs_torch.eval``    PSNR / SSIM / LPIPS, scene evaluation, camera paths
+- ``touchgs_torch.tools``   the anatomy tool, the stage profiler, the scale demo
+- ``touchgs_torch.utils``   the roofline model, pose transforms
 """
 
 __version__ = "0.1.0"

@@ -28,6 +28,7 @@ from touchgs_torch.ops.projection import (
 )
 from touchgs_torch.ops.rasterize_cuda import rasterize_cuda
 from touchgs_torch.ops.rasterize_ref import RenderOutput, rasterize_dense
+from touchgs_torch.ops.rasterize_tiled import rasterize_tiled
 from touchgs_torch.ops.sh import eval_sh
 from touchgs_torch.ops.ssim import ssim_cm
 
@@ -46,11 +47,6 @@ def render(
     """Render one view. Returns (outputs, projected) — `projected` feeds the
     densification statistics (radii, validity)."""
     rcfg = cfg.rasterize
-    if not use_dense and not rcfg.use_pallas:
-        raise NotImplementedError(
-            "use_pallas=False (the rasterize_tiled scan path) is not ported "
-            "yet: ROADMAP.md queue A, item 4; set "
-            "RasterizeConfig(use_pallas=True) for the tile kernels")
     if k_tile is None:
         k_tile = rcfg.k_tile
     opacities = params.opacities()
@@ -80,11 +76,17 @@ def render(
             proj, colors, opacities, camera.width, camera.height, rcfg,
             background=bg,
         )
-    else:
+    elif rcfg.use_pallas:
         out = rasterize_cuda(
             proj, colors, opacities, camera.width, camera.height, rcfg,
             background=bg, k_tile=k_tile, k_chunk=rcfg.k_chunk,
             tile_shards=tile_shards,
+        )
+    else:
+        # the scan path takes k_tile but not k_chunk, as in the JAX package
+        out = rasterize_tiled(
+            proj, colors, opacities, camera.width, camera.height, rcfg,
+            background=bg, k_tile=k_tile, tile_shards=tile_shards,
         )
     return out, proj
 

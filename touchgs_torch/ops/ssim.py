@@ -68,3 +68,13 @@ def ssim_cm(
         (mu00 + mu11 + c1) * (s00 + s11 + c2)
     )
     return torch.mean(ssim_map)
+
+
+def ssim(
+    img0: torch.Tensor,  # (H, W, C) in [0, 1]
+    img1: torch.Tensor,
+    c1: float = 0.01**2,
+    c2: float = 0.03**2,
+) -> torch.Tensor:
+    """Mean SSIM over the image (scalar)."""
+    return ssim_cm(img0.permute(2, 0, 1), img1.permute(2, 0, 1), c1, c2)

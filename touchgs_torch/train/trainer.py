@@ -106,8 +106,9 @@ def make_train_step(cfg: TrainConfig, optimizer: FusedAdam,
             "depth_loss": losses.depth_loss.detach(),
             "psnr": losses.psnr.detach(),
             "num_alive": params.num_alive,
-            "lossy_tiles": out.lossy_tiles,
         }
+        if out.lossy_tiles is not None:  # the tile kernels' telemetry
+            metrics["lossy_tiles"] = out.lossy_tiles
         state.step += 1
         return state, metrics
 
@@ -219,6 +220,8 @@ class Trainer:
         self._k_tile: Optional[int] = None   # escalated cap (None = config)
         self._lossy_streak = 0
         self._lossy_window: list = []  # per-step lossy_tiles since last check
+        # how often run() grew the capacity, refined and reset the opacities
+        self.events = {"grow": 0, "refine": 0, "reset_opacity": 0}
         self.train_step = make_train_step(cfg, self.optimizer)
         self.rng = np.random.default_rng(cfg.seed)
         self.generator = self._generator(cfg.seed)
@@ -275,9 +278,10 @@ class Trainer:
             self.state, metrics = self.train_step(
                 self.state, cam, image, depth, unc,
                 self.active_sh_degree(step))
-            # device scalar — no sync; the guard reads the window max at
-            # log points so truncation between log points is seen too
-            self._lossy_window.append(metrics["lossy_tiles"])
+            if "lossy_tiles" in metrics:
+                # device scalar — no sync; the guard reads the window max
+                # at log points so truncation between them is seen too
+                self._lossy_window.append(metrics["lossy_tiles"])
             if (
                 dcfg.warmup_steps <= step < dcfg.stop_refine_at
                 and step % dcfg.refine_every == 0
@@ -289,6 +293,7 @@ class Trainer:
                         > cfg.grow_trigger_fraction * cap):
                     self.state = grow_state(
                         self.state, min(cap * 2, cfg.model.max_gaussians))
+                    self.events["grow"] += 1
                 # splatfacto's schedule: pause densification after each
                 # opacity reset; size culling after the first reset period;
                 # screen-size gates until stop_screen_size_at
@@ -301,13 +306,13 @@ class Trainer:
                     step < dcfg.stop_screen_size_at,
                     generator=self.generator,
                 )
+                self.events["refine"] += 1
             if (step > 0 and step % dcfg.reset_opacity_every == 0
                     and step < dcfg.stop_refine_at):
                 self.state = reset_opacity_state(self.state, cfg)
+                self.events["reset_opacity"] += 1
             if step % cfg.log_every == 0 or step == steps - 1:
-                last_metrics = {k: float(v) for k, v in metrics.items()
-                                if k != "lossy_tiles"}
-                last_metrics["lossy_tiles"] = float(metrics["lossy_tiles"])
+                last_metrics = {k: float(v) for k, v in metrics.items()}
                 last_metrics["step"] = step
                 # truncation guard: when more than 0.5% of tiles (at least
                 # 2, at most half) are capped and unsaturated on two
@@ -316,9 +321,12 @@ class Trainer:
                 rcfg = cfg.model.rasterize
                 n_tiles = (-(-self.scene.cameras.width // rcfg.tile_w)
                            * -(-self.scene.cameras.height // rcfg.tile_h))
-                window_lossy = float(torch.stack(self._lossy_window).max())
-                self._lossy_window.clear()
-                last_metrics["lossy_tiles_window_max"] = window_lossy
+                if self._lossy_window:
+                    window_lossy = float(torch.stack(self._lossy_window).max())
+                    self._lossy_window.clear()
+                    last_metrics["lossy_tiles_window_max"] = window_lossy
+                else:  # the scan path reports no truncation
+                    window_lossy = 0.0
                 thr = min(max(0.005 * n_tiles, 2.0), 0.5 * n_tiles)
                 if window_lossy > thr:
                     self._lossy_streak += 1
