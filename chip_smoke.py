@@ -47,6 +47,16 @@ Phases (any failure raises, and the script exits nonzero with no result):
    at least two refines, one opacity reset and one capacity growth, K1
    with rows, K2 and K3 each launched (counters set to 0 just before),
    lossless GT renders and finite eval metrics.
+4c. The touch pipeline: its card path against its CPU path on the same
+   inputs (``fuse_view`` at 400x400 with an injected permutation, atol
+   1e-5; the GPIS fitted on each; ``render_depth_var`` at 96x96, depth
+   within 1e-4 m, validity flips at most 0.1%), then the hard scene,
+   ``touchgs_torch.tools.train_hard_scene.main`` on a short schedule
+   (``TOUCH_ARGS``: 8 views at 400x400, 30 patches, 600 steps, SH degree
+   0) with the launch counters set to 0 just before and read just after:
+   K1 with rows, K2 and K3 each launched, lossless GT renders, finite
+   metrics, touch on part of the sphere, and the touch arm's object depth
+   MAE below the vision arm's; its stage times.
 5. The profiling path: ``python -m touchgs_torch.tools.exp_kernel_anatomy
    --bf16``'s work (K4, the flagship's tiles at k_chunk 128, K2 with and
    without its exit, the four K5 ablations, the two K6 probe legs), with
@@ -64,7 +74,8 @@ Phases (any failure raises, and the script exits nonzero with no result):
    floor (``roofs``, models, kept out of the kernels line).
 7. One ``kernels`` JSON line (eleven entries of measured times, errors and
    launches and the computed ``bound_ms``; ``launches`` from the
-   training path for its kernels, from the anatomy path for the others),
+   training path for its kernels, from the anatomy path for the others;
+   the training path's kernels also carry ``launches_hard_scene``),
    then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -117,6 +128,12 @@ SCAN_PROFILED = 2                # and under torch.profiler
 DEMO_ARGS = ["--steps", "720", "--polish", "100", "--seed-points", "2048",
              "--reset-opacity-every", "450", "--views", "8",
              "--render-dir", ""]
+# the hard scene's A/B on a short schedule: its 400x400 images end in
+# partial tiles, and its SH degree 0 model has a (C, 0, 3) sh_rest
+TOUCH_ARGS = ["--views", "8", "--size", "400", "--touch-patches", "30",
+              "--steps", "600", "--sh-degree", "0"]
+TOUCH_FUSE_SIZE = 400        # fuse_view, card against CPU
+TOUCH_MARCH_SIZE = 96        # render_depth_var, card against CPU
 
 
 def bound(nbytes: float, fp32_ops: float = 0.0,
@@ -912,6 +929,129 @@ def phase_demo(card: str) -> None:
           "demo GT renders lossy or not reported")
 
 
+def touch_gpis(dev):
+    """The hard scene's GPIS shape: 512 contacts on the 0.5 m sphere (1536
+    training points), lengthscale 0.18, ε 0.05, fitted on ``dev``."""
+    from touchgs_torch.touch.gpis import fit_gpis
+
+    v = np.random.default_rng(3).normal(size=(512, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    return fit_gpis((0.5 * v).astype(np.float32), v.astype(np.float32),
+                    lengthscale=0.18, off_surface_eps=0.05, device=dev)
+
+
+def phase_touch_card_vs_cpu(dev) -> None:
+    """The touch modules' card path against their CPU path on the same
+    inputs: ``fuse_view`` on one 400x400 view with an injected permutation
+    (atol 1e-5); the GPIS fitted on each (posterior mean within 2e-4 and
+    variance within 1e-3 over 4096 queries, the fp32 Cholesky's spread,
+    ROADMAP C14); ``render_depth_var`` of the CPU's fit on a 96x96 view on
+    both (depth within 1e-4 m where both are valid, validity flips at most
+    0.1%).  Catches TF32 and cuSOLVER drift."""
+    from touchgs_torch.touch.fusion import fuse_view
+    from touchgs_torch.touch.gpis import (gpis_from_numpy, posterior,
+                                          render_depth_var)
+    from touchgs_torch.tools.train_scale_demo import look_at_camera
+
+    cpu = torch.device("cpu")
+    n = TOUCH_FUSE_SIZE
+    rng = np.random.default_rng(0)
+    vision = rng.uniform(0.5, 3.0, (n, n))
+    touch = np.zeros((n, n))
+    touch[100:260, 150:300] = rng.uniform(0.8, 1.2, (160, 150))
+    sig = np.where(touch > 0, rng.uniform(1e-4, 0.5, (n, n)), 0.0)
+    grounded = 1.5 * vision + 0.3 + rng.normal(0, 0.01, (n, n))
+    perm = torch.randperm(n * n, generator=torch.Generator().manual_seed(1))
+    maps = [a.astype(np.float32) for a in (grounded, touch, vision, sig)]
+    ref, out = (fuse_view(None, *(torch.as_tensor(a, device=d)
+                                  for a in maps), perm=perm)
+                for d in (cpu, dev))
+    errs = {k: float((getattr(out, k).cpu() - getattr(ref, k)).abs().max())
+            for k in ref._fields}
+    print(f"touch: fuse_view {n}x{n}, card against CPU: {errs}")
+    check(all(e <= 1e-5 for e in errs.values()),
+          f"fuse_view on the card is off the CPU's: {errs}")
+
+    t0 = time.perf_counter()
+    g_cpu = touch_gpis(cpu)
+    t_cpu = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g_dev = touch_gpis(dev)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    q = torch.as_tensor(np.random.default_rng(4).uniform(
+        -0.7, 0.7, (4096, 3)).astype(np.float32))
+    m_c, v_c = posterior(g_cpu, q)
+    m_d, v_d = posterior(g_dev, q.to(dev))
+    e_m = float((m_d.cpu() - m_c).abs().max())
+    e_v = float((v_d.cpu() - v_c).abs().max())
+    print(f"touch: fit_gpis ({g_dev.num_points} points) card {t_dev:.3f} s, "
+          f"CPU {t_cpu:.3f} s; fitted on each, posterior over 4096 queries "
+          f"differs by mean {e_m:.2e}, variance {e_v:.2e}")
+    check(e_m <= 2e-4 and e_v <= 1e-3, "the card's GPIS fit is off the "
+          f"CPU's: mean {e_m:.2e}, variance {e_v:.2e}")
+
+    m = TOUCH_MARCH_SIZE
+    res = []
+    for d in (cpu, dev):
+        g = gpis_from_numpy(g_cpu.X, g_cpu.alpha, g_cpu.L,
+                            g_cpu.lengthscale, g_cpu.signal_var,
+                            g_cpu.noise, off_eps=g_cpu.off_eps, device=d)
+        cam = look_at_camera(eye=(2.2, 0.0, 0.8), target=(0, 0, -0.1),
+                             width=m, height=m, focal=0.9 * m, device=d)
+        dep, _ = render_depth_var(g, cam, near=1.3, far=2.8, n_samples=96,
+                                  pixel_chunk=1024, support_var_frac=0.15)
+        res.append(dep.cpu().numpy())
+    c, g = res
+    both = ~np.isnan(c) & ~np.isnan(g)
+    flips = float((np.isnan(c) != np.isnan(g)).mean())
+    e_d = float(np.abs(g - c)[both].max()) if both.any() else float("nan")
+    print(f"touch: render_depth_var {m}x{m}, card against CPU: "
+          f"{int(both.sum())} pixels valid on both, depth {e_d:.2e} m, "
+          f"validity flips {flips:.4%}")
+    check(both.sum() > 100 and e_d <= 1e-4 and flips <= 1e-3,
+          "render_depth_var on the card is off the CPU's")
+
+
+def phase_touch(card: str) -> dict:
+    """``touchgs_torch.tools.train_hard_scene.main`` on a short schedule
+    (TOUCH_ARGS), the launch counters set to 0 just before and read just
+    after: K1 with rows, K2 and K3 each launch (GT renders, both arms'
+    training, the lossless eval); lossless GT renders; every metric finite;
+    touch covers part of the sphere; the touch arm's object depth MAE below
+    the vision arm's.  Returns the launch counts."""
+    from touchgs_torch.ops import rasterize_cuda as rc
+    from touchgs_torch.tools import train_hard_scene
+
+    zero_launches()
+    t0 = time.time()
+    s = train_hard_scene.main(TOUCH_ARGS)
+    torch.cuda.synchronize()
+    counts = dict(rc.launches)
+    a, b = s["arms"]["touchgs"], s["arms"]["vision_only"]
+    print(f"touch: hard scene {time.time() - t0:.1f} s on {card}; "
+          f"{s['contacts']} contacts, touch covers {s['touch_coverage']:.1%}"
+          f" of the sphere; launches {counts}")
+    print(f"touch: stage times {json.dumps(s['stages'])}")
+    for row in (a, b):
+        print(f"touch: {json.dumps(row)}")
+    check(all(counts[k] >= 1 for k in ("slot_rows", "composite_fwd",
+                                       "composite_bwd")),
+          f"hard scene launches {counts}")
+    check(s["gt_lossy_tiles"] == [0] * len(s["gt_lossy_tiles"])
+          and s["gt_lossy_tiles"], "hard scene GT renders lossy or not "
+          "reported")
+    check(all(np.isfinite(row[k]) for row in (a, b) for k in (
+        "eval_psnr", "depth_mae_cm", "object_depth_mae_cm",
+        "iters_per_sec")), f"hard scene metrics not finite: {a}, {b}")
+    check(0 < s["touch_coverage"] < 1, "touch covers none or all of the "
+          f"sphere: {s['touch_coverage']}")
+    check(a["object_depth_mae_cm"] < b["object_depth_mae_cm"],
+          f"touch arm's object depth MAE {a['object_depth_mae_cm']:.2f} cm "
+          f"not below the vision arm's {b['object_depth_mae_cm']:.2f} cm")
+    return counts
+
+
 def phase_profile(trainer, steps: int = PROFILE_STEPS,
                   label: str = "profile") -> None:
     """Device time by kernel over a few more training steps, from
@@ -1359,6 +1499,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_demo(card_name)
     torch.cuda.empty_cache()
+    phase_touch_card_vs_cpu(dev)
+    touch_counts = phase_touch(card_name)
+    torch.cuda.empty_cache()
     path_counts, x, probe = phase_anatomy_path()
     kernels += [k4] + phase_anatomy(x, probe, loops)
     # a kernel of the training path counts its launches there, any other
@@ -1367,6 +1510,8 @@ def main() -> int:
         main_path = counts.get(k["name"], 0) > 0
         k["path"] = "train" if main_path else "anatomy"
         k["launches"] = (counts if main_path else path_counts)[k["name"]]
+        if main_path:
+            k["launches_hard_scene"] = touch_counts[k["name"]]
     print(f"chip_smoke: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

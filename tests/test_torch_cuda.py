@@ -15,13 +15,15 @@ import pytest
 import torch
 
 from chip_smoke import look_at_c2w
-from touchgs_torch.config import ModelConfig, RasterizeConfig, TrainConfig
+from touchgs_torch.config import (DensifyConfig, ModelConfig, RasterizeConfig,
+                                  TrainConfig)
 from touchgs_torch.data.cameras import Camera, Cameras
 from touchgs_torch.data.scene import Scene
 from touchgs_torch.ops import anatomy, cuda_build
 from touchgs_torch.ops import rasterize_cuda as rc
 from touchgs_torch.ops import rasterize_plain as plain
 from touchgs_torch.ops.projection import project_gaussians
+from touchgs_torch.ops.rasterize_ref import rasterize_dense
 from touchgs_torch.ops.tiles import bin_gaussians
 from touchgs_torch.tools.exp_kernel_anatomy import probe_inputs
 from touchgs_torch.train.trainer import Trainer
@@ -212,11 +214,8 @@ def test_rasterize_cuda_on_card_matches_cpu(cuda_device):
         torch.testing.assert_close(gg, cc, atol=5e-6, rtol=1e-4)
 
 
-@pytest.mark.cuda
-def test_trainer_on_card_matches_cpu(cuda_device):
-    """Three steps of ``Trainer.run`` with the default device (the card)
-    against the same steps on the CPU; every step launches K1 with rows,
-    K2 and K3 once, and K1 without rows never."""
+def card_scene() -> Scene:
+    """Two random 96x64 views and 300 seeds, as numpy."""
     rng = np.random.default_rng(0)
     n_views = 2
     c2w = np.stack([look_at_c2w((2.0 * np.cos(t), 0.6, 2.0 * np.sin(t)))
@@ -225,7 +224,7 @@ def test_trainer_on_card_matches_cpu(cuda_device):
     cams = Cameras(fx=f, fy=f.copy(), cx=np.full(n_views, W / 2, np.float32),
                    cy=np.full(n_views, H / 2, np.float32), c2w=c2w, width=W,
                    height=H)
-    scene = Scene(
+    return Scene(
         cameras=cams,
         images=rng.uniform(0, 1, (n_views, H, W, 3)).astype(np.float32),
         depths=rng.uniform(1.5, 3.0, (n_views, H, W)).astype(np.float32),
@@ -234,6 +233,14 @@ def test_trainer_on_card_matches_cpu(cuda_device):
         seed_points=rng.uniform(-0.5, 0.5, (N, 3)).astype(np.float32),
         seed_colors=rng.uniform(0, 1, (N, 3)).astype(np.float32),
         scale_factor=1.0, transform=np.eye(4)[:3], name="card")
+
+
+@pytest.mark.cuda
+def test_trainer_on_card_matches_cpu(cuda_device):
+    """Three steps of ``Trainer.run`` with the default device (the card)
+    against the same steps on the CPU; every step launches K1 with rows,
+    K2 and K3 once, and K1 without rows never."""
+    scene = card_scene()
     cfg = TrainConfig(model=ModelConfig(
         max_gaussians=512, sh_degree=3,
         rasterize=RasterizeConfig(use_pallas=True)),
@@ -255,6 +262,164 @@ def test_trainer_on_card_matches_cpu(cuda_device):
         g = np.array([m[key] for m in logs["cuda"]])
         assert np.isfinite(g).all()
         np.testing.assert_allclose(g, c, rtol=1e-3, err_msg=key)
+
+
+@pytest.mark.cuda
+def test_trainer_sh_degree_0_on_card(cuda_device):
+    """SH degree 0, whose ``sh_rest`` is (C, 0, 3), as the hard scene
+    trains it, on the card through K1-K3, Adam, a capacity growth (512 to
+    1024 at step 2) and refines at steps 2, 4 and 6 (the last densifies).
+    The steps before the first refine equal the CPU's within rtol 1e-3;
+    after it each device draws its own split noise."""
+    scene = card_scene()
+    cfg = TrainConfig(
+        model=ModelConfig(max_gaussians=1024, sh_degree=0,
+                          rasterize=RasterizeConfig(use_pallas=True)),
+        densify=DensifyConfig(warmup_steps=2, refine_every=2,
+                              stop_refine_at=100),
+        init_capacity=512, grow_trigger_fraction=0.5, log_every=1)
+    steps = 7
+    logs = {}
+    for device in ("cpu", "cuda"):
+        for k in rc.launches:
+            rc.launches[k] = 0
+        trainer = Trainer(scene, cfg, device=device)
+        assert tuple(trainer.state.params.sh_rest.shape) == (512, 0, 3)
+        log = []
+        trainer.run(steps, log_fn=log.append)
+        logs[device] = log
+        p = trainer.state.params
+        assert tuple(p.sh_rest.shape) == (1024, 0, 3)
+        assert tuple(trainer.state.opt_state.mu["sh_rest"].shape) == (
+            1024, 0, 3)
+        assert trainer.events == {"grow": 1, "refine": 3,
+                                  "reset_opacity": 0}, trainer.events
+        assert int(p.num_alive) > N                 # the refine densified
+        assert all(np.isfinite(m["loss"]) for m in log)
+        if device == "cuda":
+            assert all(rc.launches[k] == steps for k in (
+                "slot_rows", "composite_fwd", "composite_bwd")), rc.launches
+    for key in ("loss", "psnr"):
+        np.testing.assert_allclose([m[key] for m in logs["cuda"][:3]],
+                                   [m[key] for m in logs["cpu"][:3]],
+                                   rtol=1e-3, err_msg=key)
+
+
+def _project_sized(a, dev, w, h):
+    """``scene_arrays`` through a camera of w x h pixels whose focal length
+    scales with the width, so the splats fill the image as at 96x64."""
+    def t(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    f = 110.0 * w / W
+    cam = Camera(fx=t(f), fy=t(f), cx=t(w / 2), cy=t(h / 2),
+                 c2w=t(a["c2w"]), width=w, height=h)
+    return project_gaussians(t(a["means"]), t(a["quats"]), t(a["scales"]),
+                             cam.w2c, cam.fx, cam.fy, cam.cx, cam.cy, w, h,
+                             RasterizeConfig(), opacities=t(a["opac"]))
+
+
+# (rgb and acc, depth where the oracle's acc > 0.5) against the dense
+# oracle.  At 400x400 the splats span 4x the pixels they span at 96x64, and
+# the tile paths drop contributions of alpha about 1/255 beyond each
+# splat's opacity-adaptive cull radius, which the oracle keeps: rgb 3.9e-3,
+# acc 4.4e-3, depth 1.4e-3 measured on the CPU, in the JAX package's own
+# ``rasterize_tiled`` (rgb 3.9e-3) as in the port's (ROADMAP.md C16)
+DENSE_TOL = {(400, 400): (5e-3, 2e-3), (100, 72): (1e-4, 1e-3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w, h", [(400, 400), (100, 72)])
+def test_partial_tiles_match_plain_and_dense(cuda_device, w, h):
+    """Images whose last tile row and column are partial, as the hard
+    scene's 400x400 (13x13 tiles for 12.5) and 100x72; ``rasterize_cuda``
+    crops them after compositing.  On the image's own tiles: K1 with rows
+    equal to its plain version, K2 with equal chunks_done and T row, K3
+    bit-exact; the render against the CPU's (rgb/acc 3e-5, depth 3e-4)
+    and against the dense oracle (``DENSE_TOL``); its gradients against
+    the CPU's."""
+    dev = cuda_device
+    a = scene_arrays()
+    cfg = RasterizeConfig()
+    n_tx, n_ty = -(-w // 32), -(-h // 32)
+    assert n_tx * 32 > w and n_ty * 32 > h
+    proj = _project_sized(a, dev, w, h)
+    bins = bin_gaussians(proj, w, h, cfg)
+    assert (bins.n_tiles_x, bins.n_tiles_y) == (n_tx, n_ty)
+    n_tiles = n_tx * n_ty
+    colors = torch.as_tensor(a["colors"], device=dev)
+    opac = torch.as_tensor(a["opac"], device=dev)
+    attrs = rc._pack_attrs(proj, colors, opac)
+    capped = torch.clamp(bins.tile_counts, max=K_TILE).contiguous()
+    args = (attrs, bins.sorted_gauss, bins.tile_starts, capped, n_tiles,
+            K_TILE, N)
+    gidx, rows = rc.slot_rows(*args)
+    gidx_p, rows_p = plain.slot_rows_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(gidx, gidx_p) and torch.equal(rows, rows_p)
+    # the last tile column and row hold splats
+    last = bins.tile_counts.reshape(n_ty, n_tx)
+    assert int(last[:, -1].sum()) > 0 and int(last[-1].sum()) > 0
+
+    nc = ((capped + K_CHUNK - 1) // K_CHUNK).to(torch.int32)
+    tids = torch.arange(n_tiles, dtype=torch.int32, device=dev)
+    fargs = (nc, tids, rows, 32, 32, K_TILE, K_CHUNK, n_tx, cfg)
+    fwd = rc.forward_tiles(*fargs)
+    fwd_p = plain.forward_tiles_plain(*fargs)
+    torch.cuda.synchronize()
+    assert torch.equal(fwd[:, plain.ROW_DONE], fwd_p[:, plain.ROW_DONE])
+    assert torch.equal(fwd[:, plain.ROW_T], fwd_p[:, plain.ROW_T])
+    torch.testing.assert_close(fwd[:, 3], fwd_p[:, 3], atol=3e-4, rtol=0)
+    torch.testing.assert_close(fwd[:, [0, 1, 2, 4]], fwd_p[:, [0, 1, 2, 4]],
+                               atol=3e-5, rtol=0)
+    done = fwd[:, plain.ROW_DONE, 0].to(torch.int32).contiguous()
+    g = torch.randn(fwd.shape, device=dev,
+                    generator=torch.Generator(dev).manual_seed(0))
+    bargs = (done, tids, rows, fwd, g, 32, 32, K_TILE, K_CHUNK, n_tx, cfg)
+    d = rc.backward_tiles(*bargs)
+    d_p = plain.backward_tiles_plain(*bargs)
+    torch.cuda.synchronize()
+    assert float(d.abs().max()) > 0 and torch.equal(d, d_p)
+
+    with torch.no_grad():
+        out = rc.rasterize_cuda(proj, colors, opac, w, h, cfg)
+        ref = rasterize_dense(proj, colors, opac, w, h, cfg)
+    assert tuple(out.rgb.shape) == (h, w, 3) and out.depth.shape == (h, w)
+    assert float(ref.acc[:, -1].max()) > 0.1 and float(
+        ref.acc[-1].max()) > 0.1                  # the cropped edges are lit
+    tol, tol_depth = DENSE_TOL[(w, h)]
+    lit = ref.acc > 0.5
+    assert float((out.rgb - ref.rgb).abs().max()) <= tol
+    assert float((out.acc - ref.acc).abs().max()) <= tol
+    assert float((out.depth - ref.depth).abs()[lit].max()) <= tol_depth
+
+    # the whole rasterizer, card against CPU, on the card's projection
+    # copied to the CPU: a contribution whose alpha sits at the 1/255 cut
+    # may fall on either side of it on the two devices (with each device
+    # projecting for itself, 3 of 480,000 rgb values at 400x400 were
+    # 3.9e-3 apart), so at most 0.01% of values may exceed the kernels'
+    # tolerances, by no more than 5e-3 in rgb and acc
+    proj_cpu = type(proj)(*(x.cpu() for x in proj))
+    res = {}
+    for device, pr in ((torch.device("cpu"), proj_cpu), (dev, proj)):
+        off = torch.zeros((N, 2), device=device, requires_grad=True)
+        cols = torch.tensor(a["colors"], device=device, requires_grad=True)
+        op = torch.tensor(a["opac"], device=device, requires_grad=True)
+        o = rc.rasterize_cuda(pr._replace(means2d=pr.means2d + off), cols,
+                              op, w, h, cfg)
+        loss = (torch.mean((o.rgb - 0.25) ** 2) + 0.3 * torch.mean(o.depth)
+                + 0.1 * torch.mean(o.acc))
+        res[device.type] = [x.detach().cpu() for x in (
+            o.rgb, o.acc, o.depth, *torch.autograd.grad(loss,
+                                                        (off, cols, op)))]
+    for k, (g, c, t) in enumerate(zip(res["cuda"][:3], res["cpu"][:3],
+                                      (3e-5, 3e-5, 3e-4))):
+        diff = (g - c).abs()
+        assert float((diff > t).float().mean()) <= 1e-4, k
+        assert k == 2 or float(diff.max()) <= 5e-3, k
+    for gg, cc in zip(res["cuda"][3:], res["cpu"][3:]):
+        assert float(cc.abs().max()) > 0
+        torch.testing.assert_close(gg, cc, atol=5e-6, rtol=1e-4)
 
 
 @pytest.mark.cuda

@@ -2,6 +2,8 @@
 ``chip_smoke.py``, imports JAX or the JAX package, not even lazily inside a
 function.  Each file is parsed with ``ast``; only the tests import both."""
 import ast
+import subprocess
+import sys
 from pathlib import Path
 
 import pytest
@@ -44,3 +46,34 @@ def test_rule_catches_every_form():
 def test_files_found():
     assert len(FILES) > 20
     assert ROOT / "touchgs_torch" / "ops" / "rasterize_tiled.py" in FILES
+
+
+TOUCH_SLICE = ("touch/__init__.py", "touch/uncertainty.py", "touch/fusion.py",
+               "touch/pointcloud.py", "touch/gpis.py", "touch/calibration.py",
+               "tools/train_hard_scene.py")
+
+
+def test_touch_slice_files_found():
+    for rel in TOUCH_SLICE:
+        assert ROOT / "touchgs_torch" / rel in FILES, rel
+
+
+def test_touch_slice_imports_without_jax():
+    """The touch modules and the hard-scene tool import in a process where
+    ``jax``, ``jaxlib`` and ``touchgs_tpu`` cannot be imported at all (an
+    entry of None in ``sys.modules`` makes the import raise, also for a
+    module a site hook imported first)."""
+    mods = ["touchgs_torch." + rel[:-3].replace("/", ".").replace(
+        ".__init__", "") for rel in TOUCH_SLICE]
+    code = (
+        "import importlib, sys\n"
+        f"for name in list(sys.modules) + list({FORBIDDEN!r}):\n"
+        f"    if name.split('.')[0] in {FORBIDDEN!r}:\n"
+        "        sys.modules[name] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}"
+        " and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120)

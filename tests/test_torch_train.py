@@ -63,10 +63,10 @@ def _scene(a, cameras_cls, scene_cls):
                      transform=np.eye(4)[:3], name="parity")
 
 
-def _cfg(mod, use_pallas=True, **kw):
+def _cfg(mod, use_pallas=True, sh_degree=3, **kw):
     return mod.TrainConfig(
         model=mod.ModelConfig(
-            max_gaussians=CAP, sh_degree=3,
+            max_gaussians=CAP, sh_degree=sh_degree,
             rasterize=mod.RasterizeConfig(use_pallas=use_pallas)),
         sh_degree_interval=1, log_every=1, seed=0, **kw)
 
@@ -217,6 +217,48 @@ def _leaves_torch(state) -> dict:
                     for f in dataclasses.fields(state.densify)},
         "step": state.step,
     })
+
+
+def test_sh_degree_0_matches_jax_trainer(arrays):
+    """SH degree 0, whose ``sh_rest`` is (C, 0, 3), as the hard scene
+    trains it: 3 steps of each trainer (Adam and the densify statistics),
+    then from JAX's state a refine with JAX's split noise injected and a
+    capacity growth, whose states agree; then 2 more steps of each.
+    Per-step loss and PSNR within rtol 1e-3."""
+    jc, tc = _cfg(jcfg, sh_degree=0), _cfg(tcfg, sh_degree=0)
+    jt = jtr.Trainer(_scene(arrays, JCameras, JScene), jc)
+    tt = ttr.Trainer(_scene(arrays, TCameras, TScene), tc, device="cpu")
+    tt.state = ttr.state_from_numpy(_leaves(jt.state), "cpu")
+    assert tuple(tt.state.params.sh_rest.shape) == (CAP, 0, 3)
+    jlog, tlog = [], []
+    jt.run(3, log_fn=jlog.append)
+    tt.run(3, log_fn=tlog.append)
+
+    key = jax.random.PRNGKey(3)
+    noise, k = [], key
+    for _ in range(max(1, jc.densify.split_samples)):
+        k, sub = jax.random.split(k)
+        noise.append(np.asarray(jax.random.normal(sub, (CAP, 3))))
+    tt.state = ttr.refine_state(
+        ttr.state_from_numpy(_leaves(jt.state), "cpu"), tc, True, True,
+        False, split_noise=torch.as_tensor(np.stack(noise)))
+    jt.state = jtr.make_refine_step(jc)(jt.state, key, True, True, False)
+    jt.state = jtr.grow_state(jt.state, 2 * CAP)
+    tt.state = ttr.grow_state(tt.state, 2 * CAP)
+    jl, tl = _flat(_leaves(jt.state)), _leaves_torch(tt.state)
+    assert tl["params.sh_rest"].shape == (2 * CAP, 0, 3)
+    assert tl["params.alive"].sum() > N_SEED      # the refine densified
+    for name, tv in tl.items():
+        np.testing.assert_allclose(tv, jl[name], rtol=1e-5, atol=1e-6,
+                                   err_msg=name)
+
+    jt.run(5, log_fn=jlog.append)
+    tt.run(5, log_fn=tlog.append)
+    assert [m["step"] for m in tlog] == list(range(5))
+    for key in ("loss", "psnr"):
+        np.testing.assert_allclose([m[key] for m in tlog],
+                                   [m[key] for m in jlog], rtol=1e-3,
+                                   err_msg=key)
 
 
 def test_render_view_lossless_on_cpu(arrays):
