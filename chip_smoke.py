@@ -50,7 +50,11 @@ Phases (any failure raises, and the script exits nonzero with no result):
 4c. The touch pipeline: its card path against its CPU path on the same
    inputs (``fuse_view`` at 400x400 with an injected permutation, atol
    1e-5; the GPIS fitted on each; ``render_depth_var`` at 96x96, depth
-   within 1e-4 m, validity flips at most 0.1%), then the hard scene,
+   within 1e-4 m, validity flips at most 0.1%); K1 with rows, K2 and K3
+   against their plain versions on the hard scene's own view (400x400:
+   13x13 tiles, the last row and column partial) at the training path's
+   k_tile 512 and the GT renders' 8192, with phase 2's checks and K3 bit-
+   exact, timed; then the hard scene,
    ``touchgs_torch.tools.train_hard_scene.main`` on a short schedule
    (``TOUCH_ARGS``: 8 views at 400x400, 30 patches, 600 steps, SH degree
    0) with the launch counters set to 0 just before and read just after:
@@ -75,7 +79,9 @@ Phases (any failure raises, and the script exits nonzero with no result):
 7. One ``kernels`` JSON line (eleven entries of measured times, errors and
    launches and the computed ``bound_ms``; ``launches`` from the
    training path for its kernels, from the anatomy path for the others;
-   the training path's kernels also carry ``launches_hard_scene``),
+   the training path's kernels also carry ``launches_hard_scene`` and,
+   under ``hard_scene``, their errors, times and bounds at both of its
+   k_tiles),
    then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -404,7 +410,6 @@ def flagship_inputs(dev):
     from touchgs_torch.ops import rasterize_cuda as rc
     from touchgs_torch.ops.projection import project_gaussians, view_directions
     from touchgs_torch.ops.sh import eval_sh
-    from touchgs_torch.ops.tiles import bin_gaussians
 
     rcfg = RasterizeConfig(use_pallas=True)
     params = init_random(n=N_GAUSSIANS, capacity=CAPACITY, sh_degree=3,
@@ -427,18 +432,51 @@ def flagship_inputs(dev):
         dirs = view_directions(params.means, cam.c2w[:3, 3])
         colors = torch.clamp(eval_sh(params.sh_coeffs(), dirs, 3, 3) + 0.5,
                              min=0.0)
-        bins = bin_gaussians(proj, WIDTH, HEIGHT, rcfg)
+    return tile_inputs(rcfg, proj, colors, opac, WIDTH, HEIGHT)
+
+
+def tile_inputs(rcfg, proj, colors, opac, width: int, height: int) -> dict:
+    """Binning of one projected view under ``rcfg``, with the packed
+    attributes and the tile kernels' per-tile inputs."""
+    from touchgs_torch.ops import rasterize_cuda as rc
+    from touchgs_torch.ops.tiles import bin_gaussians
+
+    with torch.no_grad():
+        bins = bin_gaussians(proj, width, height, rcfg)
         attrs = rc._pack_attrs(proj, colors, opac)
     n_tiles = bins.n_tiles_x * bins.n_tiles_y
     k_tile, k_chunk = rcfg.k_tile, rcfg.k_chunk
     capped = torch.clamp(bins.tile_counts, max=k_tile).contiguous()
     n_chunks = ((capped + k_chunk - 1) // k_chunk).to(torch.int32)
-    tile_ids = torch.arange(n_tiles, dtype=torch.int32, device=dev)
+    tile_ids = torch.arange(n_tiles, dtype=torch.int32, device=attrs.device)
     return dict(rcfg=rcfg, bins=bins, attrs=attrs, n_tiles=n_tiles,
                 k_tile=k_tile, k_chunk=k_chunk, capped=capped,
-                n_chunks=n_chunks, tile_ids=tile_ids, N=CAPACITY,
-                th=rcfg.tile_h, tw=rcfg.tile_w, n_tx=bins.n_tiles_x,
-                proj=proj, colors=colors, opac=opac)
+                n_chunks=n_chunks, tile_ids=tile_ids,
+                N=proj.means2d.shape[0], th=rcfg.tile_h, tw=rcfg.tile_w,
+                n_tx=bins.n_tiles_x, proj=proj, colors=colors, opac=opac)
+
+
+def path_bounds(x: dict, distinct: int, scanned: int) -> tuple:
+    """Bounds of K1 with rows, K2 and K3 on one view's tile inputs ``x``:
+    ``distinct`` rows the lists name, ``scanned`` entries K2 scanned."""
+    from touchgs_torch.ops import rasterize_plain as plain
+
+    n_tiles, k_tile = x["n_tiles"], x["k_tile"]
+    npix = x["th"] * x["tw"]
+    live_slots = int(x["capped"].sum())
+    slots = n_tiles * k_tile
+    stack_bytes = n_tiles * plain.ROWS * npix * 4
+    row_bytes = plain.A * 4
+    # K1 with rows: each input read once (the distinct rows the lists
+    # name), each output written once
+    b1r = bound(4 * (2 * n_tiles + live_slots + slots)
+                + row_bytes * (distinct + slots))
+    b2 = bound(scanned * row_bytes + 8 * n_tiles + stack_bytes,
+               fp32_ops=scanned * npix * FWD_OPS_PER_PAIR)
+    b3 = bound(scanned * row_bytes + 8 * n_tiles + 2 * stack_bytes
+               + slots * row_bytes,
+               fp32_ops=scanned * npix * BWD_OPS_PER_PAIR)
+    return b1r, b2, b3
 
 
 def phase_kernels(dev) -> list:
@@ -552,16 +590,11 @@ def phase_kernels(dev) -> list:
     t_k2, t_k2p = median_ms(k2, 20), median_ms(k2_plain, 2, warmup=0)
     t_k3, t_k3p = median_ms(k3, 20), median_ms(k3_plain, 2, warmup=0)
 
-    stack_bytes = n_tiles * plain.ROWS * npix * 4
     b1 = bound(4 * (2 * n_tiles + live_slots + n_tiles * k_tile))
-    # with rows: each input read once (the distinct rows the lists name),
-    # each output written once
-    row_bytes = plain.A * 4
+    b1r, b2, b3 = path_bounds(x, distinct, scanned)
     slots = n_tiles * k_tile
-    b1r = bound(4 * (2 * n_tiles + live_slots + slots)
-                + row_bytes * (distinct + slots))
     per_slot = bound(4 * (2 * n_tiles + live_slots + slots)
-                     + 2 * row_bytes * slots)
+                     + 2 * plain.A * 4 * slots)
     print(f"K1 with rows: {t_k1r:.4f} ms per call, {tb_k1r:.4f} ms queue-"
           f"full (plain {t_k1rp:.3f}); the pair slot_lists + attrs[gidx] "
           f"{t_pair:.4f} per call, {tb_pair:.4f} queue-full; in turns K1r, "
@@ -571,11 +604,6 @@ def phase_kernels(dev) -> list:
     print(f"K1 with rows bound: {b1r[0]:.5f} ms ({distinct} distinct rows "
           f"read once), {100 * b1r[0] / dev_k1r:.1f}% of its device time; "
           f"{per_slot[0]:.5f} ms with a row read per slot")
-    b2 = bound(scanned * plain.A * 4 + 8 * n_tiles + stack_bytes,
-               fp32_ops=scanned * npix * FWD_OPS_PER_PAIR)
-    b3 = bound(scanned * plain.A * 4 + 8 * n_tiles + 2 * stack_bytes
-               + n_tiles * k_tile * plain.A * 4,
-               fp32_ops=scanned * npix * BWD_OPS_PER_PAIR)
     return [
         dict(name="slot_lists", route="cuda",
              source="touchgs_torch/csrc/slot_lists.cu",
@@ -1011,6 +1039,123 @@ def phase_touch_card_vs_cpu(dev) -> None:
           f"validity flips {flips:.4%}")
     check(both.sum() > 100 and e_d <= 1e-4 and flips <= 1e-3,
           "render_depth_var on the card is off the CPU's")
+
+
+def hard_scene_view(dev):
+    """The hard scene's GT Gaussians (its uniform matte sphere on the
+    checkered plane) projected through its first ring camera at
+    TOUCH_ARGS's 400x400: 13x13 tiles of 32, the last row and column
+    partial.  Returns (projection, colours, opacities, size)."""
+    from touchgs_torch.config import RasterizeConfig
+    from touchgs_torch.ops.projection import project_gaussians
+    from touchgs_torch.tools.train_hard_scene import N_SPHERE
+    from touchgs_torch.tools.train_scale_demo import (build_gt_gaussians,
+                                                      ring_cameras)
+
+    size = int(TOUCH_ARGS[TOUCH_ARGS.index("--size") + 1])
+    means, quats, scales, colors, opac = (
+        torch.as_tensor(a, device=dev) for a in build_gt_gaussians())
+    colors[:N_SPHERE] = torch.tensor((0.82, 0.82, 0.85), device=dev)
+    cam = ring_cameras(8, size, size, device=dev)[0]
+    with torch.no_grad():
+        proj = project_gaussians(means, quats, scales, cam.w2c, cam.fx,
+                                 cam.fy, cam.cx, cam.cy, size, size,
+                                 RasterizeConfig(use_pallas=True),
+                                 opacities=opac)
+    return proj, colors, opac, size
+
+
+def phase_touch_kernels(dev) -> dict:
+    """K1 with rows, K2 and K3 against their plain versions on the hard
+    scene's own tiles (``hard_scene_view``: 169 tiles, the last row and
+    column partial), at the training path's k_tile 512 and the GT renders'
+    8192 (``lossless_gt_raster``): rows and chunks_done equal, K2's T row
+    equal and rgb/acc within 3e-5, depth within 3e-4, K3 bit-exact on a
+    seeded random cotangent.  Returns, for each kernel, its errors, times
+    (median over CUDA events) and bounds at both k_tiles."""
+    from touchgs_torch.config import RasterizeConfig
+    from touchgs_torch.ops import rasterize_cuda as rc
+    from touchgs_torch.ops import rasterize_plain as plain
+    from touchgs_torch.tools.train_scale_demo import lossless_gt_raster
+
+    proj, colors, opac, size = hard_scene_view(dev)
+    res = {k: [] for k in ("slot_rows", "composite_fwd", "composite_bwd")}
+    for rcfg in (RasterizeConfig(use_pallas=True), lossless_gt_raster(True)):
+        x = tile_inputs(rcfg, proj, colors, opac, size, size)
+        n_tx, n_tiles, k_tile = x["n_tx"], x["n_tiles"], x["k_tile"]
+        geom = (x["th"], x["tw"], k_tile, x["k_chunk"], n_tx, rcfg)
+        counts = x["bins"].tile_counts.reshape(-1, n_tx)
+        check(n_tx * x["tw"] > size and int(counts[:, -1].sum()) > 0
+              and int(counts[-1].sum()) > 0, "hard scene: the partial last "
+              f"tile row and column hold no splat ({n_tx}x{n_tx} tiles)")
+        k1_args = (x["attrs"], x["bins"].sorted_gauss, x["bins"].tile_starts,
+                   x["capped"], n_tiles, k_tile, x["N"])
+        nc, tids = x["n_chunks"], x["tile_ids"]
+
+        def k1():
+            return rc.slot_rows(*k1_args)
+
+        def k1_plain():
+            return plain.slot_rows_plain(*k1_args)
+
+        (gidx, rows), (gidx_p, rows_p) = k1(), k1_plain()
+        torch.cuda.synchronize()
+        check(torch.equal(gidx, gidx_p) and torch.equal(rows, rows_p),
+              f"hard scene k_tile {k_tile}: K1 with rows differs from plain")
+        distinct = int(torch.unique(gidx).numel())
+
+        def k2():
+            return rc.forward_tiles(nc, tids, rows, *geom)
+
+        def k2_plain():
+            return plain.forward_tiles_plain(nc, tids, rows, *geom)
+
+        fwd, fwd_p = k2(), k2_plain()
+        torch.cuda.synchronize()
+        rgba = torch.tensor([0, 1, 2, 4, 5], device=dev)
+        err_rgba = float((fwd[:, rgba] - fwd_p[:, rgba]).abs().max())
+        err_d = float((fwd[:, 3] - fwd_p[:, 3]).abs().max())
+        check(torch.equal(fwd[:, plain.ROW_DONE], fwd_p[:, plain.ROW_DONE])
+              and torch.equal(fwd[:, plain.ROW_T], fwd_p[:, plain.ROW_T]),
+              f"hard scene k_tile {k_tile}: K2's chunks_done or T row "
+              "differs from plain")
+        check(err_rgba <= 3e-5 and err_d <= 3e-4, f"hard scene k_tile "
+              f"{k_tile}: K2 rgb/acc/T {err_rgba:.3e}, depth {err_d:.3e}")
+        done = fwd[:, plain.ROW_DONE, 0].to(torch.int32).contiguous()
+        g = torch.randn(fwd.shape, device=dev,
+                        generator=torch.Generator(dev).manual_seed(0))
+
+        def k3():
+            return rc.backward_tiles(done, tids, rows, fwd, g, *geom)
+
+        def k3_plain():
+            return plain.backward_tiles_plain(done, tids, rows, fwd, g,
+                                              *geom)
+
+        d, d_p = k3(), k3_plain()
+        torch.cuda.synchronize()
+        k3_err = float((d - d_p).abs().max())
+        check(float(d.abs().max()) > 0 and torch.equal(d, d_p),
+              f"hard scene k_tile {k_tile}: K3 not bit-exact ({k3_err:.3e})")
+        scanned = int(done.sum()) * x["k_chunk"]
+        bounds = path_bounds(x, distinct, scanned)
+        errs = (0.0, max(err_rgba, err_d), k3_err)
+        fns = ((k1, k1_plain), (k2, k2_plain), (k3, k3_plain))
+        print(f"hard scene {size}x{size}, k_tile {k_tile}: {n_tiles} tiles, "
+              f"{int(x['bins'].tile_counts.sum())} pairs, "
+              f"{int(x['capped'].sum())} live slots, {scanned} entries "
+              f"scanned; K1 rows equal, K2 rgb/acc/T {err_rgba:.3e} depth "
+              f"{err_d:.3e}, K3 bit-exact")
+        for (name, out), err, (fn, fn_p), b in zip(res.items(), errs, fns,
+                                                   bounds):
+            ms, plain_ms = median_ms(fn, 20), median_ms(fn_p, 1, warmup=0)
+            out.append(dict(k_tile=k_tile, max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms, bound_ms=b[0],
+                            bound_by=b[1]))
+            print(f"  {name}: {ms:.4f} ms (plain {plain_ms:.3f}, bound "
+                  f"{b[0]:.5f} by {b[1]})")
+        del x, rows, rows_p, fwd, fwd_p, d, d_p
+    return res
 
 
 def phase_touch(card: str) -> dict:
@@ -1500,6 +1645,7 @@ def main() -> int:
     phase_demo(card_name)
     torch.cuda.empty_cache()
     phase_touch_card_vs_cpu(dev)
+    touch_kernels = phase_touch_kernels(dev)
     touch_counts = phase_touch(card_name)
     torch.cuda.empty_cache()
     path_counts, x, probe = phase_anatomy_path()
@@ -1512,6 +1658,7 @@ def main() -> int:
         k["launches"] = (counts if main_path else path_counts)[k["name"]]
         if main_path:
             k["launches_hard_scene"] = touch_counts[k["name"]]
+            k["hard_scene"] = touch_kernels[k["name"]]
     print(f"chip_smoke: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -412,11 +412,16 @@ def test_partial_tiles_match_plain_and_dense(cuda_device, w, h):
         res[device.type] = [x.detach().cpu() for x in (
             o.rgb, o.acc, o.depth, *torch.autograd.grad(loss,
                                                         (off, cols, op)))]
+    # Depth is normalised by acc, so a flipped contribution moves it by at
+    # most (its depth - the pixel's) / (255 acc): where acc > 0.5, with the
+    # scene's depths spanning 1.79, by at most 1.4e-2
+    lit_cpu = res["cpu"][1] > 0.5
     for k, (g, c, t) in enumerate(zip(res["cuda"][:3], res["cpu"][:3],
                                       (3e-5, 3e-5, 3e-4))):
         diff = (g - c).abs()
         assert float((diff > t).float().mean()) <= 1e-4, k
-        assert k == 2 or float(diff.max()) <= 5e-3, k
+        cap = float(diff[lit_cpu].max()) if k == 2 else float(diff.max())
+        assert cap <= (2e-2 if k == 2 else 5e-3), (k, cap)
     for gg, cc in zip(res["cuda"][3:], res["cpu"][3:]):
         assert float(cc.abs().max()) > 0
         torch.testing.assert_close(gg, cc, atol=5e-6, rtol=1e-4)

@@ -27,6 +27,7 @@ from touchgs_tpu.touch import gpis as jgp
 from touchgs_tpu.touch import pointcloud as jpc
 from touchgs_tpu.train import trainer as jtr
 from touchgs_torch.touch import gpis as tgp
+from touchgs_torch.tools import exp_gpis_precision as egp
 from touchgs_torch.tools import train_hard_scene as ths
 from touchgs_torch.train import trainer as ttr
 from tools import train_scale_demo as jdemo
@@ -111,6 +112,54 @@ def fused_pair(inputs, touch_pair):
     tout = ths.fuse_views(sensors["grounded"], touch, sensors["vision"], sig,
                           CPU, perms=perms)
     return jout, tout
+
+
+def _jax_sensors(gt, touch_patches, patch_radius):
+    """The JAX tool's synthetic sensors (``tools/train_hard_scene.py:
+    128-164``) on the shared GT renders: one numpy stream (seed 3), the
+    contacts backprojected by the JAX package with the JAX tool's
+    cameras."""
+    rng = np.random.default_rng(3)
+    cvec = rng.normal(size=(touch_patches, 3))
+    cvec /= np.linalg.norm(cvec, axis=1, keepdims=True)
+    centers = cvec * 0.5
+    cams = jdemo.ring_cameras(VIEWS, SIZE, SIZE)
+    intr = (float(cams[0].fx), float(cams[0].fy), float(cams[0].cx),
+            float(cams[0].cy))
+    out = {k: [] for k in ("vision", "grounded", "sphere_masks",
+                           "in_patches", "contacts")}
+    for v, cam in enumerate(cams):
+        gt_d, pl_d = gt["depths"][v], gt["plane_depths"][v]
+        sph = (gt_d > 0) & (pl_d - gt_d > 1e-3)
+        vis = np.where(sph, pl_d, gt_d)
+        vis = vis / 0.97 - 0.02 + rng.normal(0, 0.01, gt_d.shape)
+        vis = np.where(gt_d > 0, np.maximum(vis, 0.0), 0.0)
+        pts, _, _ = jpc.backproject_depth(
+            jnp.asarray(gt_d), jnp.asarray(gt["images"][v]), intr,
+            jnp.asarray(np.asarray(cam.c2w)))
+        pts = np.asarray(pts).reshape(SIZE, SIZE, 3)
+        d2 = ((pts[None] - centers[:, None, None, :]) ** 2).sum(-1)
+        in_patch = (d2.min(axis=0) < patch_radius ** 2) & sph
+        gnd = np.where(gt_d > 0, gt_d + rng.normal(0, 0.01, gt_d.shape), 0.0)
+        for k, a in zip(out, (vis, gnd, sph, in_patch, pts[in_patch])):
+            out[k].append(a)
+    return {k: (np.concatenate(a) if k == "contacts" else np.stack(a))
+            for k, a in out.items()}
+
+
+def test_sensors_match_jax(inputs):
+    """The port's ``synth_sensors`` against the JAX tool's sensor loop on
+    the same GT renders: the vision and grounded maps, the sphere and
+    patch masks equal (the same numpy stream drawn in the same order), the
+    contacts within 1e-6 m (each package backprojects in fp32)."""
+    gt, sensors = inputs
+    ref = _jax_sensors(gt, PATCHES, PATCH_RADIUS)
+    for k in ("vision", "grounded", "sphere_masks", "in_patches"):
+        np.testing.assert_array_equal(sensors[k], ref[k], err_msg=k)
+    assert sensors["in_patches"].any() and sensors["sphere_masks"].any()
+    assert sensors["contacts"].shape == ref["contacts"].shape
+    np.testing.assert_allclose(sensors["contacts"], ref["contacts"],
+                               rtol=0, atol=1e-6)
 
 
 def test_port_fit_keeps_jax_contacts(inputs, gpis_pair):
@@ -289,13 +338,24 @@ def test_arm_steps_match_jax(inputs, fused_pair, seeds_pair, tag, sh_degree):
 def test_main_end_to_end_on_cpu(tmp_path, monkeypatch):
     """``main`` at 48x48 with 4 views, 6 patches and 2 steps on the scan
     path: both arms' rows finite, the stage times present, the markdown at
-    ``--out`` and nothing else written."""
+    ``--out`` and nothing else written, the caller's TF32 flags kept."""
     monkeypatch.chdir(tmp_path)
     out = tmp_path / "hs.md"
-    s = ths.main(["--device", "cpu", "--views", str(VIEWS), "--size",
-                  str(SIZE), "--touch-patches", str(PATCHES), "--steps", "2",
-                  "--gpis-max-points", str(MAX_POINTS), "--capacity",
-                  str(CAP), "--out", str(out)])
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        s = ths.main(["--device", "cpu", "--views", str(VIEWS), "--size",
+                      str(SIZE), "--touch-patches", str(PATCHES), "--steps",
+                      "2", "--gpis-max-points", str(MAX_POINTS),
+                      "--capacity", str(CAP), "--out", str(out)])
+        # TF32 was off inside, and the caller's flags come back
+        assert (torch.backends.cuda.matmul.allow_tf32
+                and torch.backends.cudnn.allow_tf32)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
     assert s["device"] == "cpu" and s["rasterizer"] == "scan path"
     assert 0 < s["touch_coverage"] <= 1 and s["contacts"] > 10
     for tag in ("touchgs", "vision_only"):
@@ -316,3 +376,46 @@ def test_main_wants_cuda_by_default():
         pytest.skip("a CUDA device is present: the default device works")
     with pytest.raises(RuntimeError, match="CUDA"):
         ths.main(["--steps", "1"])
+
+
+def test_bf16_matvec_rounds_only_inside(gpis_pair):
+    """``exp_gpis_precision.matvec("bf16")``: inside the block the GPIS's
+    ``k @ alpha`` takes both inputs rounded to bf16, as a TPU's default
+    matmul precision does, in ``posterior_mean`` and ``posterior``; the
+    variance stays fp32; outside, the fp32 functions are back."""
+    _, t = gpis_pair
+    q = torch.as_tensor(np.random.default_rng(2).uniform(
+        -0.6, 0.6, (256, 3)).astype(np.float32))
+    k = tgp._rbf(tgp._sq_dist(q, t.X), t.lengthscale, t.signal_var)
+    ref = k.bfloat16().float() @ t.alpha.bfloat16().float()
+    mean32 = tgp.posterior_mean(t, q)
+    _, var32 = tgp.posterior(t, q)
+    assert not torch.equal(mean32, ref)
+    with egp.matvec("bf16"):
+        assert torch.equal(tgp.posterior_mean(t, q), ref)
+        m, v = tgp.posterior(t, q)
+        assert torch.equal(m, ref) and torch.equal(v, var32)
+    with egp.matvec("fp32"):
+        assert torch.equal(tgp.posterior_mean(t, q), mean32)
+    assert torch.equal(tgp.posterior_mean(t, q), mean32)
+
+
+def test_precision_tool_maps_on_cpu():
+    """``exp_gpis_precision.main --maps-only`` on 2 views at 48x48: both
+    modes' touch maps cover part of the sphere with a finite error, and
+    nothing is trained."""
+    out = egp.main(["--maps-only", "--", "--device", "cpu", "--views", "2",
+                    "--size", str(SIZE), "--touch-patches", str(PATCHES),
+                    "--gpis-max-points", str(MAX_POINTS)])
+    m = out["touch_maps"]
+    for mode in ("fp32", "bf16"):
+        assert 0 < m[mode]["coverage"] <= 1 and np.isfinite(
+            m[mode]["mae_cm"]), (mode, m[mode])
+    assert m["depth_diff_cm"]["max"] > 0 and "run" not in out
+
+
+def test_precision_tool_wants_cuda_by_default():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device works")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        egp.main(["--maps-only"])

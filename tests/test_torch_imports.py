@@ -50,7 +50,7 @@ def test_files_found():
 
 TOUCH_SLICE = ("touch/__init__.py", "touch/uncertainty.py", "touch/fusion.py",
                "touch/pointcloud.py", "touch/gpis.py", "touch/calibration.py",
-               "tools/train_hard_scene.py")
+               "tools/train_hard_scene.py", "tools/exp_gpis_precision.py")
 
 
 def test_touch_slice_files_found():

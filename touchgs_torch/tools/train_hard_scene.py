@@ -51,6 +51,7 @@ from touchgs_torch.config import (DensifyConfig, DepthLossConfig,
                                   RasterizeConfig, TrainConfig)
 from touchgs_torch.data.cameras import Cameras
 from touchgs_torch.data.scene import Scene
+from touchgs_torch.eval.lpips_vgg import fp32
 from touchgs_torch.models.gaussians import GaussianParams
 from touchgs_torch.models.splatfacto import render, render_lossless
 from touchgs_torch.ops.sh import rgb_to_sh_dc
@@ -88,7 +89,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--gpis-max-points", type=int, default=512)
     ap.add_argument("--gpis-seed", type=int, default=0,
                     help="seed of the GPIS's draw of --gpis-max-points "
-                         "contacts (0 as the JAX tool)")
+                         "contacts (0 as the JAX tool); ROADMAP C17's "
+                         "spread runs vary it")
     ap.add_argument("--skip-baseline", action="store_true",
                     help="run only arm A (ablation rows)")
     ap.add_argument("--out",
@@ -102,7 +104,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the streams the port draws its own way: "
                          "the fusion's 1%% masks, the trainer's views and "
-                         "split noise (the scene and sensors stay)")
+                         "split noise (the scene and sensors stay); ROADMAP "
+                         "C17's spread runs vary it")
     return ap.parse_args(argv)
 
 
@@ -359,11 +362,17 @@ def main(argv=None) -> dict:
         device_name = card()
     else:
         device_name = "cpu"
-    # fp32 for every matmul, solve and Cholesky on this path (ROADMAP C1)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    assert not (torch.backends.cuda.matmul.allow_tf32
-                or torch.backends.cudnn.allow_tf32)
+    # fp32 for every matmul, solve and Cholesky on this path (ROADMAP C1);
+    # the caller's TF32 flags come back on return
+    with fp32():
+        assert not (torch.backends.cuda.matmul.allow_tf32
+                    or torch.backends.cudnn.allow_tf32)
+        return run_ab(args, dev, device_name)
+
+
+def run_ab(args: argparse.Namespace, dev: torch.device,
+           device_name: str) -> dict:
+    """Both arms from the GT renders on: ``main``'s work."""
     use_pallas = dev.type == "cuda"
     print(f"device: {device_name}", flush=True)
     stages: dict = {}
