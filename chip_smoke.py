@@ -61,6 +61,14 @@ Phases (any failure raises, and the script exits nonzero with no result):
    K1 with rows, K2 and K3 each launched, lossless GT renders, finite
    metrics, touch on part of the sphere, and the touch arm's object depth
    MAE below the vision arm's; its stage times.
+4d. The CLI, the user's entry point (``phase_cli``): a scene directory
+   written at full width (12 views of 800x800, uint16-mm depth and
+   uncertainty PNGs, 30k seeds) and loaded back exactly; ``cli train``
+   300 steps with the ``bunny_blender`` preset through K1-K3 (each launched
+   at least 300 times, counters set to 0 just before), a resume to step 400,
+   ``eval``, ``render``, ``export-splat``, the ``.ply`` re-rendered within
+   rgb/acc 3e-5 and depth 3e-4 of the trainer's render, and 100 steps with
+   ``--camera-optimizer SO3xR3``; its times.
 5. The profiling path: ``python -m touchgs_torch.tools.exp_kernel_anatomy
    --bf16``'s work (K4, the flagship's tiles at k_chunk 128, K2 with and
    without its exit, the four K5 ablations, the two K6 probe legs), with
@@ -79,7 +87,8 @@ Phases (any failure raises, and the script exits nonzero with no result):
 7. One ``kernels`` JSON line (eleven entries of measured times, errors and
    launches and the computed ``bound_ms``; ``launches`` from the
    training path for its kernels, from the anatomy path for the others;
-   the training path's kernels also carry ``launches_hard_scene`` and,
+   the training path's kernels also carry ``launches_hard_scene``,
+   ``launches_cli`` and,
    under ``hard_scene``, their errors, times and bounds at both of its
    k_tiles),
    then the last line
@@ -140,6 +149,10 @@ TOUCH_ARGS = ["--views", "8", "--size", "400", "--touch-patches", "30",
               "--steps", "600", "--sh-degree", "0"]
 TOUCH_FUSE_SIZE = 400        # fuse_view, card against CPU
 TOUCH_MARCH_SIZE = 96        # render_depth_var, card against CPU
+# phase 4d, the CLI on a scene directory written at full width
+CLI_VIEWS, CLI_SIZE, CLI_SEEDS = 12, 800, 30_000
+CLI_STEPS, CLI_RESUME, CLI_POSE_STEPS = 300, 400, 100
+CLI_FLAGS = ["--preset", "bunny_blender", "--max-gaussians", str(CAPACITY)]
 
 
 def bound(nbytes: float, fp32_ops: float = 0.0,
@@ -1197,6 +1210,169 @@ def phase_touch(card: str) -> dict:
     return counts
 
 
+def phase_cli(card: str) -> dict:
+    """The user's entry point, ``python -m touchgs_torch.cli``, on a scene
+    directory written at full width (``tools/write_scene.py``: the scale
+    demo's GT, CLI_VIEWS views of CLI_SIZE², uint16-mm depth and
+    uncertainty PNGs, CLI_SEEDS seeds): ``load_scene`` holds what was
+    written exactly; ``train`` CLI_STEPS steps with the launch counters set
+    to 0 just before and read just after (K1 with rows, K2 and K3 each at
+    least once a step), a checkpoint and ``config.json``, a finite loss that
+    falls; ``train --load-run`` resumes at CLI_STEPS and ends at CLI_RESUME;
+    ``eval``, ``render`` and ``export-splat`` write their files; the
+    ``.ply`` re-rendered through K1-K3 matches the trainer's render of an
+    eval view within rgb/acc 3e-5 and depth 3e-4; ``train
+    --camera-optimizer SO3xR3`` stays finite.  Returns the launch counts of
+    the CLI_STEPS-step train."""
+    import tempfile
+    from pathlib import Path
+
+    from touchgs_torch import cli
+    from touchgs_torch.config import SCENE_PRESETS
+    from touchgs_torch.data.ply import load_gaussians_ply
+    from touchgs_torch.data.png import read_rgb
+    from touchgs_torch.data.scene import load_scene
+    from touchgs_torch.models.splatfacto import render_lossless
+    from touchgs_torch.ops import rasterize_cuda as rc
+    from touchgs_torch.tools.write_scene import write_scene
+    from touchgs_torch.train import checkpoint as ck
+
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root, out = Path(tmp) / "cli_scene", Path(tmp) / "outputs"
+        t0 = time.perf_counter()
+        w = write_scene(root, CLI_VIEWS, CLI_SIZE, CLI_SEEDS, "cuda")
+        times["scene_write_s"] = time.perf_counter() - t0
+        print(f"cli: wrote {CLI_VIEWS} views of {CLI_SIZE}x{CLI_SIZE} and "
+              f"{CLI_SEEDS} seeds, {w['bytes']} bytes, in "
+              f"{times['scene_write_s']:.2f} s (GT renders {w['render_s']:.2f}"
+              f" s, PNG and npy writes {w['write_s']:.2f} s)")
+
+        split = SCENE_PRESETS["bunny_blender"].train_split_fraction
+        t0 = time.perf_counter()
+        scene = load_scene(root, train_split_fraction=split)
+        times["load_scene_s"] = time.perf_counter() - t0
+        sf = scene.scale_factor
+        check(np.array_equal(scene.images,
+                             w["images"].astype(np.float32) / 255.0),
+              "load_scene: images differ from the uint8 written / 255")
+        for name, mm in (("depths", w["depth_mm"]),
+                         ("uncertainties", w["unc_mm"])):
+            check(np.array_equal(getattr(scene, name),
+                                 mm.astype(np.float32) / 1000.0 * sf),
+                  f"load_scene: {name} differ from the mm written")
+        t_abs = np.abs(scene.cameras.c2w[:, :3, 3])
+        check(abs(float(t_abs.max()) - 1.0) < 1e-6
+              and abs(float(scene.cameras.c2w[:, :3, 3].mean(0).max()))
+              < 1e-5, "load_scene: poses not centred and scaled into +/-1")
+        check(len(scene.seed_points) == CLI_SEEDS, "load_scene: seeds")
+        print(f"cli: load_scene {times['load_scene_s']:.2f} s, exact; "
+              f"scale {sf:.6f}, {len(scene.i_train)} train and "
+              f"{len(scene.i_eval)} eval views")
+
+        base = ["--data", str(root)] + CLI_FLAGS
+        zero_launches()
+        t0 = time.perf_counter()
+        trainer, run_a = cli.main(["train", "--max-steps", str(CLI_STEPS),
+                                   "--output-dir", str(out / "a")] + base)
+        torch.cuda.synchronize()
+        times["train_s"] = time.perf_counter() - t0
+        counts = dict(rc.launches)
+        hist = trainer.history
+        times["train_it_s"] = hist[-1]["iters_per_sec"]
+        print(f"cli: train {CLI_STEPS} steps {times['train_s']:.1f} s "
+              f"(scene load and init included), {times['train_it_s']:.2f}"
+              f" it/s; loss {hist[0]['loss']:.5f} -> {hist[-1]['loss']:.5f}"
+              f", alive {int(hist[-1]['num_alive'])}; launches {counts}")
+        check(all(counts[k] >= CLI_STEPS for k in (
+            "slot_rows", "composite_fwd", "composite_bwd")),
+              f"cli train launches {counts}, want >= {CLI_STEPS} each")
+        check((run_a / "config.json").exists() and (
+            run_a / "checkpoints" / f"{CLI_STEPS}.pt").exists(),
+              f"cli train: no checkpoint or config.json in {run_a}")
+        check(all(np.isfinite(m["loss"]) for m in hist)
+              and hist[-1]["loss"] < hist[0]["loss"],
+              f"cli train loss {[m['loss'] for m in hist]}")
+
+        t0 = time.perf_counter()
+        resumed, run_b = cli.main([
+            "train", "--max-steps", str(CLI_RESUME), "--load-run",
+            str(run_a), "--output-dir", str(out / "b")] + base)
+        torch.cuda.synchronize()
+        times["resume_s"] = time.perf_counter() - t0
+        # a run from step 0 would log step 0
+        check(min(m["step"] for m in resumed.history) >= CLI_STEPS
+              and resumed.state.step == CLI_RESUME
+              and (run_b / "checkpoints" / f"{CLI_RESUME}.pt").exists(),
+              f"cli resume: first step {resumed.history[0]['step']}, "
+              f"state step {resumed.state.step}")
+        t0 = time.perf_counter()
+        ck.CheckpointManager(Path(tmp) / "probe").save(CLI_RESUME,
+                                                      resumed.state)
+        times["checkpoint_save_s"] = time.perf_counter() - t0
+        del trainer, resumed
+
+        load = base + ["--load-run", str(run_b)]
+        t0 = time.perf_counter()
+        results = cli.main(["eval"] + load)
+        times["eval_s"] = time.perf_counter() - t0
+        check(all(np.isfinite(results[k]) for k in ("psnr", "ssim",
+                                                   "lpips"))
+              and (run_b / "eval.json").exists(),
+              f"cli eval: {results}")
+        rdir = cli.main(["render"] + load)
+        rgbs = sorted(rdir.glob("*_rgb.png"))
+        check(len(rgbs) == len(scene.i_eval) and read_rgb(rgbs[0]).shape
+              == (CLI_SIZE, CLI_SIZE, 3), f"cli render: {len(rgbs)} PNGs")
+        t0 = time.perf_counter()
+        exported, ply = cli.main(["export-splat"] + load)
+        times["export_s"] = time.perf_counter() - t0
+
+        params = load_gaussians_ply(ply, device=exported.device)
+        view = int(scene.i_eval[0])
+        zero_launches()
+        with torch.no_grad():
+            a = render_lossless(params, scene.cameras.at(view,
+                                                         exported.device),
+                                exported.cfg.model,
+                                active_sh_degree=exported.cfg.model.sh_degree)
+            b = exported.render_view(view)
+        torch.cuda.synchronize()
+        ply_counts = dict(rc.launches)
+        errs = {k: float((getattr(a, k) - getattr(b, k)).abs().max())
+                for k in ("rgb", "acc", "depth")}
+        print(f"cli: .ply of {int(params.num_alive)} splats (capacity "
+              f"{params.capacity}) re-rendered, view {view}: max |err| "
+              f"{errs}; launches {ply_counts}")
+        check(errs["rgb"] <= 3e-5 and errs["acc"] <= 3e-5
+              and errs["depth"] <= 3e-4, f"cli .ply re-render: {errs}")
+        check(ply_counts["slot_rows"] >= 2 and ply_counts[
+            "composite_fwd"] >= 2, f".ply renders launched {ply_counts}")
+        del exported, params
+
+        zero_launches()
+        posed, _ = cli.main([
+            "train", "--max-steps", str(CLI_POSE_STEPS),
+            "--camera-optimizer", "SO3xR3", "--output-dir",
+            str(out / "c")] + base)
+        torch.cuda.synchronize()
+        pose_counts = dict(rc.launches)
+        pd = posed.state.pose_deltas
+        print(f"cli: SO3xR3 {CLI_POSE_STEPS} steps, loss "
+              f"{posed.history[-1]['loss']:.5f}, |pose delta| max "
+              f"{float(pd.abs().max()):.3e}; launches {pose_counts}")
+        check(all(np.isfinite(m["loss"]) for m in posed.history)
+              and bool(torch.isfinite(pd).all())
+              and float(pd.abs().max()) > 0,
+              "cli SO3xR3: non-finite loss or pose deltas, or none moved")
+        check(all(pose_counts[k] >= CLI_POSE_STEPS for k in (
+            "slot_rows", "composite_fwd", "composite_bwd")),
+              f"cli SO3xR3 launches {pose_counts}")
+        del posed
+    print(f"cli: times {json.dumps(times)} on {card}")
+    return counts
+
+
 def phase_profile(trainer, steps: int = PROFILE_STEPS,
                   label: str = "profile") -> None:
     """Device time by kernel over a few more training steps, from
@@ -1648,6 +1824,8 @@ def main() -> int:
     touch_kernels = phase_touch_kernels(dev)
     touch_counts = phase_touch(card_name)
     torch.cuda.empty_cache()
+    cli_counts = phase_cli(card_name)
+    torch.cuda.empty_cache()
     path_counts, x, probe = phase_anatomy_path()
     kernels += [k4] + phase_anatomy(x, probe, loops)
     # a kernel of the training path counts its launches there, any other
@@ -1658,6 +1836,7 @@ def main() -> int:
         k["launches"] = (counts if main_path else path_counts)[k["name"]]
         if main_path:
             k["launches_hard_scene"] = touch_counts[k["name"]]
+            k["launches_cli"] = cli_counts[k["name"]]
             k["hard_scene"] = touch_kernels[k["name"]]
     print(f"chip_smoke: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -685,3 +685,70 @@ def test_bf16_probe_matches_plain(cuda_device, leg, n_tiles, spread):
     else:
         assert float(ref.max()) > 100
     assert _tile_rel_err(out, ref) <= (1e-5 if leg == "f32" else 2.0 ** -6)
+
+
+@pytest.fixture(scope="module")
+def cli_run(tmp_path_factory):
+    """A scene directory written by ``tools/write_scene.py`` (6 views of
+    320x320, 2000 seeds; at 96x96 the GT's 100k splats overflow the
+    lossless k_tile 8192 in its 9 tiles), then ``cli train`` 20 steps on the
+    card with the launch counters set to 0 just before."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    from touchgs_torch import cli
+    from touchgs_torch.tools.write_scene import write_scene
+
+    root = tmp_path_factory.mktemp("cli_scene")
+    written = write_scene(root, views=6, size=320, seeds=2000, device="cuda")
+    for k in rc.launches:
+        rc.launches[k] = 0
+    trainer, run = cli.main([
+        "train", "--data", str(root), "--preset", "bunny_blender",
+        "--max-steps", "20", "--output-dir",
+        str(tmp_path_factory.mktemp("outputs"))])
+    torch.cuda.synchronize()
+    return root, written, trainer, run, dict(rc.launches)
+
+
+@pytest.mark.cuda
+def test_cli_train_on_card(cli_run):
+    """``load_scene`` reads back what was written exactly; the CLI trains
+    through K1-K3 (each launched every step) and writes its checkpoint."""
+    from touchgs_torch.data.scene import load_scene
+
+    root, written, trainer, run, counts = cli_run
+    scene = load_scene(root)
+    np.testing.assert_array_equal(
+        scene.images, written["images"].astype(np.float32) / 255.0)
+    np.testing.assert_array_equal(
+        scene.depths,
+        written["depth_mm"].astype(np.float32) / 1000.0 * scene.scale_factor)
+    assert trainer.device.type == "cuda"
+    assert trainer.cfg.model.rasterize.use_pallas
+    assert all(counts[k] >= 20 for k in ("slot_rows", "composite_fwd",
+                                         "composite_bwd")), counts
+    assert (run / "checkpoints" / "20.pt").exists()
+    assert all(np.isfinite(m["loss"]) for m in trainer.history)
+
+
+@pytest.mark.cuda
+def test_ply_rerender_on_card(cli_run, tmp_path):
+    """The trained state exported to ``.ply`` (alive slots, compacted) and
+    loaded back renders an eval view through K1-K3 within rgb/acc 3e-5 and
+    depth 3e-4 of the trainer's own render."""
+    from touchgs_torch.data.ply import load_gaussians_ply, save_gaussians_ply
+    from touchgs_torch.models.splatfacto import render_lossless
+
+    _, _, trainer, _, _ = cli_run
+    save_gaussians_ply(tmp_path / "splat.ply", trainer.state.params)
+    params = load_gaussians_ply(tmp_path / "splat.ply", device="cuda")
+    assert int(params.num_alive) == int(trainer.state.params.num_alive)
+    view = int(trainer.scene.i_eval[0])
+    with torch.no_grad():
+        a = render_lossless(params, trainer.scene.cameras.at(view, "cuda"),
+                            trainer.cfg.model,
+                            active_sh_degree=trainer.cfg.model.sh_degree)
+        b = trainer.render_view(view)
+    for name, tol in (("rgb", 3e-5), ("acc", 3e-5), ("depth", 3e-4)):
+        err = float((getattr(a, name) - getattr(b, name)).abs().max())
+        assert err <= tol, (name, err)

@@ -44,6 +44,21 @@ SEED_STRIDE = 10
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """PyTorch on one intra-op thread for this module (restored after it).
+    With several, the GT render's torch.exp of the log-scales came out of
+    one worker thread's chunk 4.8e-6 off (about 80 ulps) in some fresh
+    processes, and the GPIS magnified that past
+    test_fused_maps_match_jax's atol (ROADMAP.md C18).  One thread is also
+    the faster choice when the suite runs several workers on the same
+    cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def inputs():
     gt = ths.render_gt(VIEWS, SIZE, CPU, use_pallas=False)

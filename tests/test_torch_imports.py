@@ -1,6 +1,8 @@
 """The port's import rule: no module of ``touchgs_torch/``, nor
-``chip_smoke.py``, imports JAX or the JAX package, not even lazily inside a
-function.  Each file is parsed with ``ast``; only the tests import both."""
+``chip_smoke.py``, imports JAX, orbax or the JAX package, not even lazily
+inside a function, and PIL only in ``data/png.py``'s lazy path for files
+that are not plain PNGs.  Each file is parsed with ``ast``; only the tests
+import both packages."""
 import ast
 import subprocess
 import sys
@@ -9,7 +11,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "touchgs_tpu")
+FORBIDDEN = ("jax", "jaxlib", "orbax", "touchgs_tpu")
 FILES = sorted(ROOT.glob("touchgs_torch/**/*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -77,3 +79,55 @@ def test_touch_slice_imports_without_jax():
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+SCENE_CLI_SLICE = ("cli.py", "data/png.py", "data/depth_io.py",
+                   "data/splits.py", "data/undistort.py", "data/scene.py",
+                   "data/realsense.py", "data/ply.py", "models/pose_opt.py",
+                   "train/checkpoint.py", "train/trainer.py",
+                   "tools/write_scene.py")
+
+
+def test_scene_cli_slice_files_found():
+    for rel in SCENE_CLI_SLICE:
+        assert ROOT / "touchgs_torch" / rel in FILES, rel
+
+
+def test_pil_only_in_png_lazy_path():
+    """PIL is imported nowhere but inside ``data/png.py::_pil_open``."""
+    for path in FILES:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        pil = [line for line, mod in _imports(tree)
+               if mod.split(".")[0] == "PIL"]
+        if path == ROOT / "touchgs_torch" / "data" / "png.py":
+            fn = next(n for n in ast.walk(tree) if isinstance(
+                n, ast.FunctionDef) and n.name == "_pil_open")
+            assert pil and all(fn.lineno <= line <= fn.end_lineno
+                               for line in pil), pil
+        else:
+            assert not pil, (path, pil)
+
+
+def test_scene_cli_slice_imports_without_jax_or_pil():
+    """The slice's modules import, and the CLI parses, in a process where
+    ``jax``, ``orbax``, ``touchgs_tpu`` and ``PIL`` cannot be imported."""
+    blocked = FORBIDDEN + ("PIL",)
+    mods = ["touchgs_torch." + rel[:-3].replace("/", ".")
+            for rel in SCENE_CLI_SLICE]
+    code = (
+        "import importlib, sys\n"
+        f"for name in list(sys.modules) + list({blocked!r}):\n"
+        f"    if name.split('.')[0] in {blocked!r}:\n"
+        "        sys.modules[name] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from touchgs_torch import cli\n"
+        "try:\n"
+        "    cli.main(['--help'])\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {blocked!r}"
+        " and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120, capture_output=True)

@@ -25,6 +25,18 @@ from tests.synthetic import look_at_camera as j_look_at
 W, H = 64, 48
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """PyTorch on one intra-op thread for this module: the suite runs
+    several workers on the same cores, where each worker's threads would
+    wait on the others' (and the CPU renders' results do not depend on it).
+    The count is restored after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def test_build_gt_gaussians_bit_equal():
     t = tdemo.build_gt_gaussians()
     j = jdemo.build_gt_gaussians()

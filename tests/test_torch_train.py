@@ -272,11 +272,13 @@ def test_render_view_lossless_on_cpu(arrays):
 
 
 def test_out_of_slice_options_raise(arrays):
-    scene = _scene(arrays, TCameras, TScene)
+    """The live viewer is not ported (ROADMAP.md A19): ``run`` refuses one
+    before it takes a step."""
+    tt = ttr.Trainer(_scene(arrays, TCameras, TScene), _cfg(tcfg),
+                     device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttr.Trainer(scene, dataclasses.replace(
-            _cfg(tcfg), pose_opt=tcfg.PoseOptConfig(mode="SO3xR3")),
-            device="cpu")
+        tt.run(2, viewer=object())
+    assert tt.state.step == 0
 
 
 def test_default_device_is_cuda(arrays):

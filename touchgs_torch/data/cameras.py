@@ -84,3 +84,14 @@ class Cameras:
             fx=self.fx[idx], fy=self.fy[idx], cx=self.cx[idx], cy=self.cy[idx],
             c2w=self.c2w[idx], width=self.width, height=self.height,
         )
+
+    def rescale(self, factor: float) -> "Cameras":
+        """Rescale output resolution (nerfstudio `rescale_output_resolution`,
+        dataparser_tactile.py:290)."""
+        return Cameras(
+            fx=self.fx * factor, fy=self.fy * factor,
+            cx=self.cx * factor, cy=self.cy * factor,
+            c2w=self.c2w,
+            width=int(round(self.width * factor)),
+            height=int(round(self.height * factor)),
+        )

@@ -18,6 +18,7 @@ import torch
 
 from touchgs_torch.config import TrainConfig
 from touchgs_torch.data.cameras import Camera
+from touchgs_torch.data.png import write_png
 from touchgs_torch.models.gaussians import GaussianParams
 from touchgs_torch.models.splatfacto import render_lossless
 from touchgs_torch.utils.transforms import focal_from_fov, quat_to_rotmat_np
@@ -142,10 +143,8 @@ def render_camera_path(
     if out_dir is not None:
         out_dir = Path(out_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
-        from PIL import Image
-
         for i, f in enumerate(frames):
-            Image.fromarray(f).save(out_dir / f"frame_{i:05d}.png")
+            write_png(out_dir / f"frame_{i:05d}.png", f)
     if video_path is not None:
         try:
             import imageio.v2 as imageio

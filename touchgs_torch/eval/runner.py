@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from touchgs_torch.config import TrainConfig
+from touchgs_torch.data.png import write_png
 from touchgs_torch.data.scene import Scene
 from touchgs_torch.eval.metrics import eval_metrics
 from touchgs_torch.models.gaussians import GaussianParams
@@ -69,18 +70,13 @@ def evaluate_scene(
     results = {k: float(np.mean([m[k] for m in per_view])) for k in keys}
 
     if render_dir is not None:
-        from PIL import Image
-
         rd = Path(render_dir)
         rd.mkdir(parents=True, exist_ok=True)
         for i, rgb, depth in renders:
-            Image.fromarray(
-                (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
-            ).save(rd / f"{i:05d}_rgb.png")
+            write_png(rd / f"{i:05d}_rgb.png",
+                      (np.clip(rgb, 0, 1) * 255).astype(np.uint8))
             d = depth / max(float(depth.max()), 1e-9)
-            Image.fromarray((d * 255).astype(np.uint8)).save(
-                rd / f"{i:05d}_depth.png"
-            )
+            write_png(rd / f"{i:05d}_depth.png", (d * 255).astype(np.uint8))
     return results
 
 

@@ -69,3 +69,8 @@ def rgb_to_sh_dc(rgb):
     """Invert the DC band: colour c → coefficient so eval_sh + 0.5 == c.
     Takes a numpy array or a tensor and returns the same kind."""
     return (rgb - 0.5) / _C0
+
+
+def sh_dc_to_rgb(dc: torch.Tensor) -> torch.Tensor:
+    """The DC band's colour: coefficient → eval_sh + 0.5 at degree 0."""
+    return dc * _C0 + 0.5

@@ -50,6 +50,7 @@ from touchgs_torch.config import (DensifyConfig, DepthLossConfig,
                                   DepthLossType, ModelConfig, OptimConfig,
                                   RasterizeConfig, TrainConfig)
 from touchgs_torch.data.cameras import Cameras
+from touchgs_torch.data.png import write_png
 from touchgs_torch.data.scene import Scene
 from touchgs_torch.eval.lpips_vgg import fp32
 from touchgs_torch.models.gaussians import GaussianParams
@@ -98,7 +99,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                                          "hard_scene.md"),
                     help="output markdown")
     ap.add_argument("--render-dir", default=None,
-                    help="eval renders (PNG, needs PIL); none by default")
+                    help="eval renders (PNG); none by default")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the tile kernels) or cpu (the scan path)")
     ap.add_argument("--seed", type=int, default=0,
@@ -332,12 +333,10 @@ def evaluate_arm(params, cfg: TrainConfig, cameras: Cameras, images,
         r = out.rgb.cpu().numpy()
         d = out.depth.cpu().numpy()
         if render_dir is not None:
-            from PIL import Image
-
             render_dir.mkdir(parents=True, exist_ok=True)
-            Image.fromarray((np.concatenate([r, images[i]], axis=1)
-                             .clip(0, 1) * 255).astype(np.uint8)).save(
-                render_dir / f"{tag}_eval_{i:02d}_pred_vs_gt.png")
+            write_png(render_dir / f"{tag}_eval_{i:02d}_pred_vs_gt.png",
+                      (np.concatenate([r, images[i]], axis=1)
+                       .clip(0, 1) * 255).astype(np.uint8))
         mse = float(((r - images[i]) ** 2).mean())
         psnrs.append(-10 * np.log10(max(mse, 1e-10)))
         m = depths[i] > 0

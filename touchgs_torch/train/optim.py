@@ -27,7 +27,8 @@ class FusedAdamState:
 
 
 class FusedAdam:
-    def __init__(self, cfg: OptimConfig, b1: float = 0.9, b2: float = 0.999):
+    def __init__(self, cfg: OptimConfig, b1: float = 0.9, b2: float = 0.999,
+                 extra_lrs: dict | None = None):
         self.cfg = cfg
         self.b1 = b1
         self.b2 = b2
@@ -38,6 +39,9 @@ class FusedAdam:
             "sh_dc": cfg.features_dc_lr,
             "sh_rest": cfg.features_rest_lr,
         }
+        if extra_lrs:
+            # e.g. {"pose_deltas": PoseOptConfig.lr} — any extra diff group
+            self.fixed_lrs.update(extra_lrs)
 
     def init(self, params: dict) -> FusedAdamState:
         any_p = next(iter(params.values()))
@@ -80,7 +84,8 @@ class FusedAdam:
 
 
 def reset_opt_slots(state: FusedAdamState, touched: torch.Tensor) -> None:
-    """Zero the Adam moments of (re)written Gaussian slots, in place."""
+    """Zero the Adam moments of (re)written Gaussian slots, in place (the
+    Gaussian groups only: the pose deltas' rows are cameras)."""
     for moments in (state.mu, state.nu):
-        for v in moments.values():
-            v[touched] = 0.0
+        for k in PARAM_GROUPS:
+            moments[k][touched] = 0.0

@@ -3,10 +3,12 @@
 
 Per step: render one training view, photometric + depth loss, per-group
 Adam, densify bookkeeping; periodic refine, opacity reset and capacity
-growth.  PyTorch runs eagerly, so the step is a plain function; parameters,
-Adam moments and densify statistics are updated in place where the JAX
-package returns new arrays.  Checkpoints, the viewer and the SO3xR3 pose
-optimizer are not ported yet (ROADMAP.md queue A, items 10, 14 and 19).
+growth; checkpoints through ``train/checkpoint.py``; with
+``cfg.pose_opt.mode == "SO3xR3"`` per-camera pose deltas optimized with the
+model (``models/pose_opt.py``).  PyTorch runs eagerly, so the step is a
+plain function; parameters, Adam moments and densify statistics are updated
+in place where the JAX package returns new arrays.  The live viewer is not
+ported yet (ROADMAP.md A19).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from touchgs_torch.models.gaussians import (
     init_random,
     params_from_numpy,
 )
+from touchgs_torch.models.pose_opt import apply_pose_delta
 from touchgs_torch.models.splatfacto import compute_losses, render
 from touchgs_torch.train.optim import (
     PARAM_GROUPS,
@@ -47,6 +50,9 @@ class TrainState:
     opt_state: FusedAdamState
     densify: DensifyState
     step: int
+    # (n_cameras, 6) SO3xR3 tangents when cfg.pose_opt.mode != "off"
+    # (legacy/config_tactile.py:36-37), else None
+    pose_deltas: Optional[torch.Tensor] = None
 
 
 def state_from_numpy(leaves: dict, device: torch.device | str = "cuda"
@@ -54,7 +60,7 @@ def state_from_numpy(leaves: dict, device: torch.device | str = "cuda"
     """Build a `TrainState` from numpy leaves laid out as the JAX
     package's ``TrainState``: ``{"params": {field: array}, "count": int,
     "mu": {group: array}, "nu": {group: array}, "densify": {field: array},
-    "step": int}``."""
+    "step": int}`` and, with the pose optimizer, ``"pose_deltas"``."""
     def t(a):
         return torch.tensor(np.asarray(a), device=device)
 
@@ -68,37 +74,71 @@ def state_from_numpy(leaves: dict, device: torch.device | str = "cuda"
         ),
         densify=DensifyState(**{k: t(v) for k, v in leaves["densify"].items()}),
         step=int(leaves["step"]),
+        pose_deltas=(None if leaves.get("pose_deltas") is None
+                     else t(leaves["pose_deltas"])),
     )
+
+
+def _finite_dead_slots(gauss: dict, alive: torch.Tensor) -> dict:
+    """The Gaussian groups with every dead slot set to a finite constant
+    (an identity quaternion, zeros elsewhere), for the pose optimizer's
+    step.  Dead slots turn NaN after the first step (the quaternion norm's
+    gradient at 0, in both packages); they render nothing, but the camera's
+    gradient sums every slot's projection Jacobian, and 0·NaN would make it
+    NaN.  ``torch.where`` passes the live slots' values and gradients
+    unchanged (ROADMAP.md C21)."""
+    out = {}
+    for g, x in gauss.items():
+        fill = torch.zeros_like(x)
+        if g == "quats":
+            fill[:, 0] = 1.0
+        out[g] = torch.where(alive.view((-1,) + (1,) * (x.dim() - 1)), x,
+                             fill)
+    return out
 
 
 def make_train_step(cfg: TrainConfig, optimizer: FusedAdam,
                     k_tile: Optional[int] = None) -> Callable:
-    """The train step: (state, camera, image, depth, unc, active_sh_degree)
-    → (state, metrics), updating ``state`` in place.  Metrics are device
+    """The train step: (state, camera, image, depth, unc, active_sh_degree
+    [, view_idx]) → (state, metrics), updating ``state`` in place.
+    ``view_idx`` selects the camera's row of ``state.pose_deltas`` when the
+    SO3xR3 pose optimizer is on (cfg.pose_opt.mode).  Metrics are device
     scalars, so the step never waits for the device.  ``k_tile`` overrides
     the config's per-tile entry cap."""
+    pose_on = cfg.pose_opt.mode != "off"
 
     def step_fn(state: TrainState, camera: Camera, image, depth, unc,
-                active_sh_degree: int):
+                active_sh_degree: int, view_idx: Optional[int] = None):
         params = state.params
         C = params.capacity
         diff = {g: getattr(params, g).detach().requires_grad_(True)
                 for g in PARAM_GROUPS}
+        targets = {g: getattr(params, g) for g in PARAM_GROUPS}
+        gauss = dict(diff)
+        cam = camera
+        if pose_on:
+            diff["pose_deltas"] = state.pose_deltas.detach().requires_grad_(
+                True)
+            targets["pose_deltas"] = state.pose_deltas
+            cam = apply_pose_delta(camera, diff["pose_deltas"][view_idx])
+            gauss = _finite_dead_slots(gauss, params.alive)
         offset0 = torch.zeros((C, 2), device=params.means.device,
                               requires_grad=True)
         out, proj = render(
-            dataclasses.replace(params, **diff), camera, cfg.model,
-            active_sh_degree=active_sh_degree, means2d_offset=offset0,
-            k_tile=k_tile,
+            dataclasses.replace(params, **gauss),
+            cam, cfg.model, active_sh_degree=active_sh_degree,
+            means2d_offset=offset0, k_tile=k_tile,
         )
         losses = compute_losses(out, image, depth, unc, cfg.depth,
                                 cfg.ssim_lambda)
         grads = torch.autograd.grad(losses.total,
-                                    [diff[g] for g in PARAM_GROUPS] + [offset0])
-        optimizer.step({g: getattr(params, g) for g in PARAM_GROUPS},
-                       dict(zip(PARAM_GROUPS, grads[:-1])), state.opt_state)
-        state.densify = update_stats(state.densify, grads[-1], proj.radii,
-                                     proj.valid, camera.width, camera.height)
+                                    list(diff.values()) + [offset0])
+        optimizer.step(targets, dict(zip(diff, grads[:-1])), state.opt_state)
+        # the radii come out of the graph (ceil): kept out of it, so the
+        # statistics hold no step's autograd graph alive
+        state.densify = update_stats(state.densify, grads[-1],
+                                     proj.radii.detach(), proj.valid,
+                                     camera.width, camera.height)
         metrics = {
             "loss": losses.total.detach(),
             "rgb_l1": losses.rgb_l1.detach(),
@@ -141,7 +181,8 @@ def _next_pow2(n: int) -> int:
 def grow_state(state: TrainState, new_capacity: int) -> TrainState:
     """Zero-pad every per-gaussian tensor of the state to ``new_capacity``;
     padded slots are dead (``alive`` pads to False), and ``log_scales`` pads
-    with −12 (scale ≈ 0) so a virgin slot never trips a size prune."""
+    with −12 (scale ≈ 0) so a virgin slot never trips a size prune.  The
+    pose deltas and their moments are per camera and keep their shape."""
     old = state.params.capacity
     if new_capacity <= old:
         return state
@@ -157,15 +198,19 @@ def grow_state(state: TrainState, new_capacity: int) -> TrainState:
         logit_opacities=pad(p.logit_opacities), sh_dc=pad(p.sh_dc),
         sh_rest=pad(p.sh_rest), alive=pad(p.alive, False))
     opt = state.opt_state
+
+    def pad_moments(moments):
+        return {k: pad(v) if k in PARAM_GROUPS else v
+                for k, v in moments.items()}
+
     return TrainState(
         params=params,
-        opt_state=FusedAdamState(
-            count=opt.count,
-            mu={k: pad(v) for k, v in opt.mu.items()},
-            nu={k: pad(v) for k, v in opt.nu.items()}),
+        opt_state=FusedAdamState(count=opt.count, mu=pad_moments(opt.mu),
+                                 nu=pad_moments(opt.nu)),
         densify=DensifyState(*(pad(getattr(state.densify, f.name))
                                for f in dataclasses.fields(DensifyState))),
         step=state.step,
+        pose_deltas=state.pose_deltas,
     )
 
 
@@ -178,17 +223,16 @@ class Trainer:
 
     def __init__(self, scene: Scene, cfg: TrainConfig,
                  device: torch.device | str | None = None):
-        if cfg.pose_opt.mode != "off":
-            raise NotImplementedError(
-                f"pose_opt.mode={cfg.pose_opt.mode!r}: the SO3xR3 pose "
-                "optimizer is not ported yet (ROADMAP.md queue A, item 14)")
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("Trainer wants a CUDA device and none is "
                                "available; pass device='cpu' to run on the CPU")
         self.scene = scene
         self.cfg = cfg
-        self.optimizer = FusedAdam(cfg.optim)
+        pose_on = cfg.pose_opt.mode != "off"
+        self.optimizer = FusedAdam(
+            cfg.optim,
+            extra_lrs={"pose_deltas": cfg.pose_opt.lr} if pose_on else None)
 
         n_seed = (len(scene.seed_points)
                   if scene.seed_points is not None
@@ -210,12 +254,15 @@ class Trainer:
                 capacity=init_cap, sh_degree=cfg.model.sh_degree,
                 init_opacity=cfg.model.init_opacity, seed=cfg.seed,
                 device=self.device)
+        pose_deltas = (torch.zeros((len(scene.cameras), 6),
+                                   device=self.device) if pose_on else None)
+        diff0 = {g: getattr(params, g) for g in PARAM_GROUPS}
+        if pose_on:
+            diff0["pose_deltas"] = pose_deltas
         self.state = TrainState(
-            params=params,
-            opt_state=self.optimizer.init(
-                {g: getattr(params, g) for g in PARAM_GROUPS}),
+            params=params, opt_state=self.optimizer.init(diff0),
             densify=DensifyState.zeros(params.capacity, self.device),
-            step=0,
+            step=0, pose_deltas=pose_deltas,
         )
         self._k_tile: Optional[int] = None   # escalated cap (None = config)
         self._lossy_streak = 0
@@ -260,7 +307,14 @@ class Trainer:
         return min(step // self.cfg.sh_degree_interval, self.cfg.model.sh_degree)
 
     def run(self, max_steps: Optional[int] = None,
-            log_fn: Optional[Callable[[dict], None]] = None) -> dict:
+            log_fn: Optional[Callable[[dict], None]] = None,
+            ckpt_manager=None, viewer=None) -> dict:
+        """Train from ``state.step`` to ``max_steps`` (``cfg.max_steps``),
+        saving to ``ckpt_manager`` every ``cfg.checkpoint_every`` steps and
+        at the last one."""
+        if viewer is not None:
+            raise NotImplementedError(
+                "the live viewer is not ported yet (ROADMAP.md A19)")
         cfg = self.cfg
         steps = max_steps if max_steps is not None else cfg.max_steps
         dcfg = cfg.densify
@@ -277,7 +331,7 @@ class Trainer:
             cam, image, depth, unc = self._batch(view)
             self.state, metrics = self.train_step(
                 self.state, cam, image, depth, unc,
-                self.active_sh_degree(step))
+                self.active_sh_degree(step), view)
             if "lossy_tiles" in metrics:
                 # device scalar — no sync; the guard reads the window max
                 # at log points so truncation between them is seen too
@@ -346,6 +400,11 @@ class Trainer:
                 self.history.append(last_metrics)
                 if log_fn:
                     log_fn(last_metrics)
+            if ckpt_manager is not None and (
+                (step + 1) % cfg.checkpoint_every == 0 or step == steps - 1
+            ):
+                extra = {"k_tile": self._k_tile} if self._k_tile else None
+                ckpt_manager.save(step + 1, self.state, extra=extra)
         return last_metrics
 
     def render_view(self, view_idx: int, use_dense: bool = False):
