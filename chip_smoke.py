@@ -69,6 +69,22 @@ Phases (any failure raises, and the script exits nonzero with no result):
    ``eval``, ``render``, ``export-splat``, the ``.ply`` re-rendered within
    rgb/acc 3e-5 and depth 3e-4 of the trainer's render, and 100 steps with
    ``--camera-optimizer SO3xR3``; its times.
+4e. The monocular-depth nets and the capture tooling (``phase_vision``):
+   DPT-Large, ZoeD_N, ZoeD_NK and Depth-Anything-Small at their published
+   widths on random weights from a seed (``tools/random_checkpoint.py``),
+   written as npz files under a temporary directory and read back by the
+   real loader; one image through each on the CPU and on the card, max
+   |card − CPU| within VISION_TOL of the depth's range, and a run with
+   TF32 on shown to miss it; ms an image and peak memory.  Then ``cli
+   pipeline`` on a 12-view 800x800 capture directory (touch points for
+   gpis-render, the GT depths as the aligning depths) with ``--zoe-weights``
+   the ZoeD_N npz: every stage runs and is timed, ``zoe_depth/`` holds a
+   positive depth map a view, the eval metrics are finite, and K1 with
+   rows, K2 and K3 are each launched (counters set to 0 just before;
+   ``launches_pipeline`` in the kernels line).  Then ``render_pc_depth``
+   and ``point_cloud_to_depth_via_mesh`` (grid 96) on the scale demo's GT
+   points, card against CPU, and the mesh's depth against the lossless GT
+   render on the sphere.
 5. The profiling path: ``python -m touchgs_torch.tools.exp_kernel_anatomy
    --bf16``'s work (K4, the flagship's tiles at k_chunk 128, K2 with and
    without its exit, the four K5 ablations, the two K6 probe legs), with
@@ -88,13 +104,17 @@ Phases (any failure raises, and the script exits nonzero with no result):
    launches and the computed ``bound_ms``; ``launches`` from the
    training path for its kernels, from the anatomy path for the others;
    the training path's kernels also carry ``launches_hard_scene``,
-   ``launches_cli`` and,
+   ``launches_cli``, ``launches_pipeline`` and,
    under ``hard_scene``, their errors, times and bounds at both of its
    k_tiles),
    then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits with status 1 before doing anything.
+
+    python3 chip_smoke.py --vision
+
+runs phase 4e alone.
 
     python3 chip_smoke.py --ab OLD_CSRC
 
@@ -153,6 +173,21 @@ TOUCH_MARCH_SIZE = 96        # render_depth_var, card against CPU
 CLI_VIEWS, CLI_SIZE, CLI_SEEDS = 12, 800, 30_000
 CLI_STEPS, CLI_RESUME, CLI_POSE_STEPS = 300, 400, 100
 CLI_FLAGS = ["--preset", "bunny_blender", "--max-gaussians", str(CAPACITY)]
+# phase 4e, the monocular-depth nets at their published widths on random
+# weights (``tools/random_checkpoint.py``), each at its processor's size
+VISION_NETS = {"dpt": 384, "zoe_n": (384, 512), "zoe_nk": (384, 512),
+               "depth_anything": 518}
+VISION_SEED = 11
+# max |card − CPU| over the range of the CPU's depth (ZoeDepth's random
+# heads give a narrow band, 0.64-0.73): fp32 with TF32 off on both read at
+# most 1.4e-5, the TF32 runs 9.2e-4 to 5.9e-3 on an H100 (PERF.md §6), so
+# the TF32 run of each net must miss it
+VISION_TOL = 1e-4
+# ``cli pipeline`` on a capture directory: 12 views of 800x800 as phase 4d
+# writes them, touch points for gpis-render, the GT depths as the aligning
+# (sparse) depths, ZoeD_N at full width in stage 3
+PIPE_TOUCHES, PIPE_STEPS = 256, 100
+MESH_GRID = 96
 
 
 def bound(nbytes: float, fp32_ops: float = 0.0,
@@ -1373,6 +1408,365 @@ def phase_cli(card: str) -> dict:
     return counts
 
 
+def vision_net(net: str, path):
+    """The port's net for ``net`` loaded by the real loader from ``path``."""
+    from touchgs_torch.vision import depth_anything, dpt, zoedepth
+
+    return {"dpt": dpt.DPT, "zoe_n": zoedepth.ZoeDepth,
+            "zoe_nk": zoedepth.ZoeDepth,
+            "depth_anything": depth_anything.DepthAnything}[net].from_npz(path)
+
+
+def vision_input(net: str, rgb: np.ndarray) -> torch.Tensor:
+    from touchgs_torch.vision import depth_anything, dpt, zoedepth
+
+    pre = {"dpt": dpt.preprocess, "zoe_n": zoedepth.preprocess,
+           "zoe_nk": zoedepth.preprocess,
+           "depth_anything": depth_anything.preprocess}[net]
+    return pre(rgb, size=VISION_NETS[net], device="cpu")
+
+
+def phase_vision_nets(tmp, card: str, dev) -> dict:
+    """Phase 4e (a): DPT-Large, ZoeD_N, ZoeD_NK and Depth-Anything-Small at
+    their published widths on random weights (``random_checkpoint``, seed
+    VISION_SEED), written as npz files under ``tmp`` and read back by the
+    real loader.  One seeded 480x640 image, each net's preprocess, through
+    the net on the CPU and on the card: max |card − CPU| within VISION_TOL
+    of the depth's range, and the same run with TF32 on (the nets' fp32
+    guard bypassed) outside it; ZoeD_NK routes to the same head on both.
+    Prints each net's ms an image (median over CUDA events), its peak
+    memory and its times on the host.  Returns {net: npz path}."""
+    from pathlib import Path
+
+    from touchgs_torch.tools.random_checkpoint import ARCHS, random_checkpoint
+
+    rgb = np.random.default_rng(VISION_SEED).integers(
+        0, 256, (480, 640, 3), dtype=np.uint8)
+    paths, rows = {}, {}
+    for net in VISION_NETS:
+        kind, arch = ARCHS[net]
+        t0 = time.perf_counter()
+        path = Path(tmp) / f"{net}.npz"
+        np.savez(path, **random_checkpoint(kind, arch, VISION_SEED))
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model = vision_net(net, path)
+        t_load = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.parameters())
+        img = vision_input(net, rgb)
+        t0 = time.perf_counter()
+        ref = model(img)
+        t_cpu = time.perf_counter() - t0
+        route = (int(torch.argmax(model.route(img))) if net == "zoe_nk"
+                 else None)
+
+        model = model.to(dev)
+        img_c = img.to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = model(img_c).cpu()
+        peak = torch.cuda.max_memory_allocated()
+        ms = median_ms(lambda: model(img_c), iters=5)
+        scale = max(float(ref.max() - ref.min()), 1e-30)
+        err = float((out - ref).abs().max()) / scale
+        prev = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            with torch.no_grad():
+                out32 = type(model).forward(model, img_c).cpu()
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = prev
+        err32 = float((out32 - ref).abs().max()) / scale
+        rows[net] = dict(params=n_params, input=list(img.shape[:2]),
+                         ms=ms, peak_gib=peak / 2**30, err=err,
+                         err_tf32=err32, depth_min=float(ref.min()),
+                         depth_max=float(ref.max()), cpu_s=t_cpu,
+                         write_s=t_write, load_s=t_load)
+        print(f"vision: {net} ({n_params} parameters, input "
+              f"{tuple(img.shape[:2])}): {ms:.3f} ms an image on the card, "
+              f"peak {peak / 2**30:.3f} GiB; depth {float(ref.min()):.4f}.."
+              f"{float(ref.max()):.4f}; card against CPU {err:.3e} of its "
+              f"range (tolerance {VISION_TOL:.0e}), with TF32 on "
+              f"{err32:.3e}; CPU forward {t_cpu:.2f} s, npz written "
+              f"{t_write:.2f} s, loaded {t_load:.2f} s", flush=True)
+        check(out.shape == ref.shape and bool(torch.isfinite(out).all())
+              and scale > 1e-3, f"vision {net}: shape {tuple(out.shape)}, "
+              f"range {scale}")
+        check(err <= VISION_TOL, f"vision {net}: card against CPU {err:.3e}"
+              f" of its range, over {VISION_TOL:.0e}")
+        check(err32 > VISION_TOL, f"vision {net}: the TF32 run reads "
+              f"{err32:.3e}, inside {VISION_TOL:.0e}: the tolerance cannot "
+              "tell TF32 from fp32")
+        if route is not None:
+            logits = model.route(img_c).cpu()
+            print(f"vision: zoe_nk routes to head {route} on the CPU, "
+                  f"{int(torch.argmax(logits))} on the card (logits "
+                  f"{logits.tolist()})")
+            check(int(torch.argmax(logits)) == route, "zoe_nk: the card "
+                  "routes to another head than the CPU")
+        paths[net] = path
+        del model, img_c, out, out32
+        torch.cuda.empty_cache()
+    print(f"vision: {json.dumps(rows)} on {card}")
+    return paths
+
+
+def pipeline_scene(root, dev):
+    """A capture directory for ``cli pipeline``: phase 4d's scene
+    (``write_scene``) without what stages 5 and 6 write (the depth paths in
+    transforms.json, the touch seeds), its GT depths as the aligning
+    ``sparse_depths/`` of a simulated scene, and PIPE_TOUCHES touch points
+    on the GT sphere, the patch nearest the first view
+    (``touch_points.npy``)."""
+    import shutil
+
+    from touchgs_torch.tools.write_scene import write_scene
+
+    w = write_scene(root, CLI_VIEWS, CLI_SIZE, CLI_SEEDS, dev)
+    meta = json.loads((root / "transforms.json").read_text())
+    for f in meta["frames"]:
+        del f["depth_file_path"], f["uncertainty_file_path"]
+    (root / "transforms.json").write_text(json.dumps(meta, indent=2))
+    shutil.rmtree(root / "uncertainty")
+    (root / "depth").rename(root / "sparse_depths")
+    for name in ("points_touch.npy", "points_colors.npy"):
+        (root / name).unlink()
+    # one contact patch: the sphere's seeds nearest the first view's eye
+    pts = w["points"]
+    sphere = pts[np.abs(np.linalg.norm(pts, axis=1) - 0.5) < 0.03]
+    eye = w["c2w"][0, :3, 3]
+    near = np.argsort(np.linalg.norm(sphere - eye, axis=1))[:PIPE_TOUCHES]
+    np.save(root / "touch_points.npy", sphere[near])
+    return w
+
+
+def phase_pipeline(tmp, zoe_npz, card: str, dev) -> dict:
+    """Phase 4e (b): ``cli pipeline`` on a full-width capture directory
+    (`pipeline_scene`) with ``--zoe-weights`` the ZoeD_N npz of (a):
+    gpis-render, read-touch-depths, the monocular depth (ZoeD_N at 384²),
+    fuse, add-depth-paths, seed, PIPE_STEPS train steps and eval, none
+    skipped; each stage timed.  ``zoe_depth/`` holds a PNG a view, finite
+    and positive; fusion, seeds and the depth paths are written; the eval
+    metrics are finite; K1 with rows, K2 and K3 are each launched (counters
+    set to 0 just before).  Returns the launch counts."""
+    from pathlib import Path
+
+    from touchgs_torch import cli
+    from touchgs_torch.data.png import read_png
+    from touchgs_torch.ops import rasterize_cuda as rc
+    from touchgs_torch.vision import monodepth
+
+    root = Path(tmp) / "capture"
+    t0 = time.perf_counter()
+    pipeline_scene(root, dev)
+    times = {"scene_write_s": time.perf_counter() - t0}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                times[name] = time.perf_counter() - t
+        return run
+
+    stages = {"gpis_render": "cmd_gpis_render",
+              "read_touch_depths": "cmd_read_touch_depths",
+              "fuse": "cmd_fuse", "add_depth_paths": "cmd_add_depth_paths",
+              "seed": "cmd_seed", "train": "cmd_train", "eval": "cmd_eval"}
+    saved = {fn: getattr(cli, fn) for fn in stages.values()}
+    saved_predict = monodepth.VisualPipeline.predict
+    for name, fn in stages.items():
+        setattr(cli, fn, timed(name, saved[fn]))
+    monodepth.VisualPipeline.predict = timed("monodepth", saved_predict)
+    zero_launches()
+    t0 = time.perf_counter()
+    try:
+        results = cli.main([
+            "pipeline", "--data", str(root), "--max-steps", str(PIPE_STEPS),
+            "--touch-points", str(root / "touch_points.npy"),
+            "--zoe-weights", str(zoe_npz), "--output-dir",
+            str(Path(tmp) / "outputs")] + CLI_FLAGS
+            + (["--cpu"] if dev.type == "cpu" else []))
+    finally:
+        for fn, f in saved.items():
+            setattr(cli, fn, f)
+        monodepth.VisualPipeline.predict = saved_predict
+    torch.cuda.synchronize()
+    times["pipeline_s"] = time.perf_counter() - t0
+    counts = dict(rc.launches)
+    print(f"pipeline: stage times {json.dumps(times)}; launches {counts}; "
+          f"eval {json.dumps(results)}")
+    missing = [n for n in list(stages) + ["monodepth"] if n not in times]
+    check(not missing, f"pipeline: stages that did not run: {missing}")
+    zoe = sorted((root / "zoe_depth").iterdir())
+    mm = np.stack([read_png(f) for f in zoe])
+    print(f"pipeline: zoe_depth/ {len(zoe)} PNGs of {mm.shape[1:]}, "
+          f"{int(mm.min())}..{int(mm.max())} mm")
+    check(len(zoe) == CLI_VIEWS and mm.shape[1:] == (CLI_SIZE, CLI_SIZE)
+          and int(mm.min()) > 0, "pipeline: zoe_depth/ is not a positive "
+          "depth map a view")
+    meta = json.loads((root / "transforms.json").read_text())
+    check(len(list((root / "fused_output_dir").iterdir())) == CLI_VIEWS
+          and (root / "points_touch.npy").exists() and meta["frames"][0][
+              "depth_file_path"].startswith("fused_output_dir/"),
+          "pipeline: fusion, seeds or depth paths missing")
+    check(all(np.isfinite(results[k]) for k in ("psnr", "ssim", "lpips")),
+          f"pipeline eval: {results}")
+    check(all(counts[k] >= PIPE_STEPS for k in (
+        "slot_rows", "composite_fwd", "composite_bwd")),
+          f"pipeline launches {counts}, want >= {PIPE_STEPS} each")
+    return counts
+
+
+def phase_capture(card: str, dev) -> None:
+    """Phase 4e (c): the capture modules on the card against the CPU, on
+    the scale demo's GT points through an 800x800 ring camera:
+    ``render_pc_depth`` (splat 1) of all 100k; ``point_cloud_to_depth_via_
+    mesh`` at grid MESH_GRID of the GT sphere's points that face the camera
+    (``visibility_by_normals``: a one-view scan, so orienting the estimated
+    normals toward the eye is right; on the whole closed sphere it flips
+    the far side's, ROADMAP.md C26).  Validity flips at most 0.1%, depths
+    within 1e-5 m at all but 0.1% of the pixels both hit (float32 sums in
+    another order move a point across a pixel edge, or a face across the
+    iso level).  The mesh's depth against the lossless GT render where the
+    sphere faces the camera (cos > 0.5): median within 1 cm; its 90th
+    percentile and the share of those pixels it misses are printed (the
+    reference's marching tetrahedra emit nothing for a tet whose fourth
+    vertex alone lies on its side of the level, C26).  Prints the times."""
+    from touchgs_torch.config import ModelConfig
+    from touchgs_torch.data.meshing import (estimate_normals,
+                                            point_cloud_to_depth_via_mesh)
+    from touchgs_torch.data.pc_depth import (render_pc_depth,
+                                             visibility_by_normals)
+    from touchgs_torch.models.gaussians import GaussianParams
+    from touchgs_torch.models.splatfacto import render
+    from touchgs_torch.ops.sh import rgb_to_sh_dc
+    from touchgs_torch.tools.train_scale_demo import (assert_lossless,
+                                                      build_gt_gaussians,
+                                                      lossless_gt_raster,
+                                                      ring_cameras)
+
+    means, quats, scales, colors, opac = build_gt_gaussians()
+    # the CPU's and the card's camera, renders and times
+    devs = (torch.device("cpu"), dev)
+    cams = [ring_cameras(CLI_VIEWS, CLI_SIZE, CLI_SIZE, device=d)[1]
+            for d in devs]
+    times, res = {}, [None, None]
+
+    def flips_and_err(c, g):
+        """(validity flips, share of the pixels both hit that differ by
+        more than 1e-5 m, the largest such difference, share hit)."""
+        both = (c > 0) & (g > 0)
+        diff = np.abs(c - g)[both]
+        return (float(((c > 0) != (g > 0)).mean()),
+                float((diff > 1e-5).mean()), float(diff.max()),
+                float(both.mean()))
+
+    def timed(name, i, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[f"{name}_{('cpu', 'card')[i]}_s"] = time.perf_counter() - t0
+        return out
+
+    for i, (d, cam) in enumerate(zip(devs, cams)):
+        pts = torch.as_tensor(means, device=d)
+        res[i] = timed("render_pc_depth", i, lambda: render_pc_depth(
+            pts, cam.w2c, cam.fx, cam.fy, cam.cx, cam.cy, cam.width,
+            cam.height)).cpu().numpy()
+    pc = flips_and_err(*res)
+    print(f"capture: render_pc_depth {CLI_SIZE}x{CLI_SIZE} of {len(means)} "
+          f"points, card against CPU: validity flips {pc[0]:.4%}, depths "
+          f"off by more than 1e-5 m at {pc[1]:.4%} (at most {pc[2]:.2e} m), "
+          f"{pc[3]:.2%} of pixels hit")
+    check(pc[0] <= 1e-3 and pc[1] <= 1e-3 and pc[3] > 0.05,
+          "render_pc_depth on the card is off the CPU's")
+
+    sphere = means[np.abs(np.linalg.norm(means, axis=1) - 0.5) < 1e-4]
+    eye = cams[0].c2w[:3, 3].numpy()
+    scan = sphere[visibility_by_normals(sphere, sphere, eye)]
+    nrm = [timed("estimate_normals", i, lambda: estimate_normals(
+        torch.as_tensor(scan, device=d), viewpoint=eye)).cpu()
+        for i, d in enumerate(devs)]
+    cos = float((nrm[0] * nrm[1]).sum(1).min())
+    for i, cam in enumerate(cams):
+        res[i] = timed("mesh", i, lambda: point_cloud_to_depth_via_mesh(
+            scan, cam, grid_res=MESH_GRID)).cpu().numpy()
+    me = flips_and_err(*res)
+    print(f"capture: {len(scan)} sphere points facing the camera; "
+          f"estimate_normals card against CPU: min cos {cos:.6f}; "
+          f"point_cloud_to_depth_via_mesh grid {MESH_GRID}: validity flips "
+          f"{me[0]:.4%}, depths off by more than 1e-5 m at {me[1]:.4%} (at "
+          f"most {me[2]:.2e} m), {me[3]:.2%} of pixels hit")
+    check(cos > 1 - 1e-4, f"estimate_normals on the card: min cos {cos}")
+    check(me[0] <= 1e-3 and me[1] <= 1e-3 and me[3] > 0.05,
+          "point_cloud_to_depth_via_mesh on the card is off the CPU's")
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    G = len(means)
+    gt = GaussianParams(
+        means=t(means), quats=t(quats), log_scales=t(np.log(scales)),
+        logit_opacities=t(np.log(opac / (1 - opac))),
+        sh_dc=t(rgb_to_sh_dc(colors)), sh_rest=torch.zeros((G, 3, 3),
+                                                           device=dev),
+        alive=torch.ones((G,), dtype=torch.bool, device=dev))
+    cfg = ModelConfig(max_gaussians=G, sh_degree=1,
+                      rasterize=lossless_gt_raster(dev.type == "cuda"))
+    with torch.no_grad():
+        out = assert_lossless(render(gt, cams[1], cfg,
+                                     active_sh_degree=1)[0])
+    gt_depth = out.depth.cpu().numpy()
+    acc = out.acc.cpu().numpy()
+    # pixels whose GT surface point lies on the sphere (r = 0.5), facing
+    # the camera (cos of the ray against the radial normal above 0.5)
+    cam = cams[0]
+    v, u = np.mgrid[0:CLI_SIZE, 0:CLI_SIZE] + 0.5
+    ray = np.stack([(u - float(cam.cx)) / float(cam.fx),
+                    -(v - float(cam.cy)) / float(cam.fy),
+                    -np.ones_like(u)], -1) @ cam.c2w.numpy()[:3, :3].T
+    world = ray * gt_depth[..., None] + eye
+    facing = -(ray * world).sum(-1) / np.linalg.norm(ray, axis=-1) / 0.5
+    on_sphere = ((acc > 0.99) & (np.abs(np.linalg.norm(world, axis=-1)
+                                        - 0.5) < 0.01) & (facing > 0.5))
+    hit = on_sphere & (res[1] > 0)
+    gap = np.abs(res[1] - gt_depth)[hit] * 100
+    med, p90 = float(np.median(gap)), float(np.percentile(gap, 90))
+    print(f"capture: mesh depth against the lossless GT render where the "
+          f"sphere faces the camera ({int(on_sphere.sum())} pixels, "
+          f"{1 - hit.sum() / on_sphere.sum():.2%} missed): median "
+          f"{med:.3f} cm, 90th percentile {p90:.3f} cm; times "
+          f"{json.dumps(times)} on {card}")
+    check(on_sphere.sum() > 1000 and med <= 1.0,
+          f"the mesh misses the sphere: median {med} cm, 90th {p90} cm")
+
+
+def phase_vision(card: str, dev=torch.device("cuda")) -> dict:
+    """Phase 4e: the monocular-depth nets, ``cli pipeline`` with ZoeD_N,
+    and the capture modules (`phase_vision_nets`, `phase_pipeline`,
+    `phase_capture`); the npz files live in a temporary directory removed
+    at the end.  Returns the pipeline's launch counts."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = phase_vision_nets(tmp, card, dev)
+        for net, path in paths.items():
+            if net != "zoe_n":
+                path.unlink()
+        counts = phase_pipeline(tmp, paths["zoe_n"], card, dev)
+    torch.cuda.empty_cache()
+    phase_capture(card, dev)
+    print(f"vision: phase 4e {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def phase_profile(trainer, steps: int = PROFILE_STEPS,
                   label: str = "profile") -> None:
     """Device time by kernel over a few more training steps, from
@@ -1794,6 +2188,12 @@ def main() -> int:
         return 1
     from touchgs_torch.utils.profiling import card  # fails outside a checkout
 
+    if sys.argv[1:] == ["--vision"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(card(), flush=True)
+        phase_vision(card())
+        return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--ab":
         print(card(), flush=True)
         phase_ab(torch.device("cuda"), sys.argv[2])
@@ -1826,6 +2226,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli_counts = phase_cli(card_name)
     torch.cuda.empty_cache()
+    pipeline_counts = phase_vision(card_name)
+    torch.cuda.empty_cache()
     path_counts, x, probe = phase_anatomy_path()
     kernels += [k4] + phase_anatomy(x, probe, loops)
     # a kernel of the training path counts its launches there, any other
@@ -1837,6 +2239,7 @@ def main() -> int:
         if main_path:
             k["launches_hard_scene"] = touch_counts[k["name"]]
             k["launches_cli"] = cli_counts[k["name"]]
+            k["launches_pipeline"] = pipeline_counts[k["name"]]
             k["hard_scene"] = touch_kernels[k["name"]]
     print(f"chip_smoke: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

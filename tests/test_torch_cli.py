@@ -13,7 +13,7 @@ import torch
 from touchgs_tpu import cli as jcli
 from touchgs_tpu.data.depth_io import read_depth_mm as j_read_depth_mm
 from touchgs_torch import cli as tcli
-from touchgs_torch.data.png import read_rgb
+from touchgs_torch.data.png import read_png, read_rgb
 from touchgs_torch.touch import fusion as tfusion
 
 from tests.test_cli import _build_scene_dir
@@ -210,19 +210,43 @@ def test_render_and_export_write_their_files(scenes, trained):
 
 def test_pipeline_runs_and_refuses_without_monodepth(tmp_path_factory,
                                                      tmp_path):
-    """``pipeline`` with the monocular-depth directory present runs every
-    stage to ``eval.json``; without it, it names ROADMAP A16."""
-    root = _build_scene_dir(tmp_path_factory.mktemp("pipe_scene"))
-    flags = ["--data", str(root), "--preset", "bunny_real", "--max-steps",
-             "3", "--output-dir", str(tmp_path / "out"), "--cpu"]
-    with pytest.raises(NotImplementedError, match="A16"):
-        tcli.main(["pipeline"] + flags)
-    results = tcli.main(["pipeline", "--zoe-dir", "zoe_out"] + flags)
-    assert {"psnr", "ssim", "lpips"} <= set(results)
-    assert len(_files(root, "touch_depth")) == N
-    assert len(_files(root, "fused_output_dir_uncertainty")) == N
-    assert (root / "points_touch.npy").exists()
-    meta = json.loads((root / "transforms.json").read_text())
+    """``pipeline`` without its monocular-depth directory runs that stage
+    (the compact trunk on the CPU) and every other to ``eval.json``.  With
+    ``--zoe-weights`` a trunk npz saved by the JAX package, its
+    ``zoe_depth/`` PNGs equal those of the JAX CLI's ``pipeline`` on a copy
+    of the scene within 1 mm (the truncating mm cast of depths that agree
+    to about 1e-5 m; measured: at most 1 mm, at under 1% of pixels).  The
+    name is kept from when the stage was not ported and refused."""
+    import jax.numpy as jnp
+
+    from touchgs_tpu.vision import monodepth as jmono
+
+    jroot = _build_scene_dir(tmp_path_factory.mktemp("pipe_scene"))
+    troot = tmp_path / "pipe_scene"
+    shutil.copytree(jroot, troot)
+    weights = tmp_path / "trunk.npz"
+    jmono.save_npz_weights(jmono.DPTDepthModel().init(
+        jax.random.PRNGKey(0), jnp.zeros((384, 384, 3))), weights)
+    results = {}
+    for cli, root in ((jcli, jroot), (tcli, troot)):
+        assert not (root / "zoe_depth").exists()
+        results[cli] = cli.main([
+            "pipeline", "--data", str(root), "--preset", "bunny_real",
+            "--max-steps", "3", "--output-dir", str(root / "out"),
+            "--zoe-weights", str(weights), "--cpu"])
+    assert {"psnr", "ssim", "lpips"} <= set(results[tcli])
+    jf, tf = _files(jroot, "zoe_depth"), _files(troot, "zoe_depth")
+    assert [p.name for p in tf] == [p.name for p in jf] and len(tf) == N
+    for a, b in zip(jf, tf):
+        da, db = (read_png(f).astype(np.int64) for f in (a, b))
+        assert da.shape == (H, W) and (da > 0).mean() > 0.5
+        diff = np.abs(da - db)
+        assert diff.max() <= 1, (a.name, diff.max())
+        assert (diff > 0).mean() < 1e-2, a.name
+    assert len(_files(troot, "touch_depth")) == N
+    assert len(_files(troot, "fused_output_dir_uncertainty")) == N
+    assert (troot / "points_touch.npy").exists()
+    meta = json.loads((troot / "transforms.json").read_text())
     assert meta["frames"][0]["depth_file_path"].startswith("fused_output_dir/")
 
 

@@ -752,3 +752,104 @@ def test_ply_rerender_on_card(cli_run, tmp_path):
     for name, tol in (("rgb", 3e-5), ("acc", 3e-5), ("depth", 3e-4)):
         err = float((getattr(a, name) - getattr(b, name)).abs().max())
         assert err <= tol, (name, err)
+
+
+# ---------------------------------------- monocular depth and capture --
+
+def small_net(net: str, seed: int = 0):
+    """A net of ``touchgs_torch.vision`` at narrow widths with the published
+    structure, on a random checkpoint drawn as ``random_checkpoint`` draws
+    the full-width ones."""
+    import dataclasses
+
+    from touchgs_torch.tools.random_checkpoint import random_checkpoint
+    from touchgs_torch.vision import depth_anything as da
+    from touchgs_torch.vision import dpt, zoedepth as zd
+
+    vit = dict(hidden_size=64, num_layers=4, num_heads=2,
+               intermediate_size=128, image_size=64,
+               neck_hidden_sizes=(16, 32, 64, 64), fusion_hidden_size=32)
+    if net == "dpt":
+        kind, cls = "dpt", dpt.DPT
+        arch = dpt.DPTArch(**vit, backbone_out_indices=(0, 1, 2, 3))
+    elif net == "depth_anything":
+        kind, cls = "depth_anything", da.DepthAnything
+        arch = da.DepthAnythingArch(
+            hidden_size=64, num_layers=4, num_heads=2, image_size=56,
+            out_indices=(1, 2, 3, 4), reassemble_hidden_size=64,
+            neck_hidden_sizes=(16, 32, 64, 64), fusion_hidden_size=32,
+            head_hidden_size=16)
+    else:
+        kind, cls = "zoedepth", zd.ZoeDepth
+        arch = zd.ZoeDepthArch(**vit, backbone_out_indices=(1, 2, 3, 4),
+                               bottleneck_features=32,
+                               num_relative_features=8)
+        if net == "zoe_nk":
+            arch = dataclasses.replace(
+                arch, bin_configurations=zd.ZOEDEPTH_NK.bin_configurations)
+    return cls(random_checkpoint(kind, arch, seed), arch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["dpt", "zoe_n", "zoe_nk", "depth_anything"])
+def test_vision_net_on_card_matches_cpu(cuda_device, net):
+    """Each net on the card against the CPU at fp32 with TF32 off (the
+    nets' own guard): within 1e-4 of the depth's scale; ZoeD_NK routes to
+    the same head."""
+    model = small_net(net)
+    size = (56, 84) if net == "depth_anything" else (64, 96)
+    img = torch.from_numpy(np.random.default_rng(3).uniform(
+        -1, 1, size + (3,)).astype(np.float32))
+    ref = model(img)
+    card = model.to(cuda_device)
+    out = card(img.to(cuda_device)).cpu()
+    scale = float(ref.abs().max())
+    assert out.shape == ref.shape and scale > 0.1
+    assert float((out - ref).abs().max()) <= 1e-4 * scale
+    if net == "zoe_nk":
+        assert int(torch.argmax(card.route(img.to(cuda_device)))) == int(
+            torch.argmax(model.to("cpu").route(img)))
+
+
+@pytest.mark.cuda
+def test_trunk_pipeline_on_card_matches_cpu(cuda_device):
+    """``VisualPipeline``'s compact trunk (random, from the same seed on
+    both) on a 100x72 image: within 1e-4 of the scale."""
+    from touchgs_torch.vision.monodepth import VisualPipeline
+
+    rgb = np.random.default_rng(4).integers(0, 255, (72, 100, 3),
+                                            dtype=np.uint8)
+    ref = VisualPipeline(device="cpu").predict_depth(rgb)
+    out = VisualPipeline().predict_depth(rgb)
+    assert out.shape == (72, 100) and float(np.abs(ref).max()) > 0
+    assert np.abs(out - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
+@pytest.mark.cuda
+def test_capture_renders_on_card_match_cpu(cuda_device):
+    """``render_pc_depth`` and ``render_mesh_depth`` of a sphere on the card
+    against the CPU: validity flips at most 0.1% of pixels, depths within
+    1e-5 m where both hit."""
+    from touchgs_torch.data.meshing import (marching_tetrahedra,
+                                            poisson_indicator,
+                                            render_mesh_depth)
+    from touchgs_torch.data.pc_depth import render_pc_depth
+
+    v = np.random.default_rng(5).normal(size=(20000, 3)).astype(np.float32)
+    pts = 0.5 * v / np.linalg.norm(v, axis=1, keepdims=True)
+    t = lambda x, dev: torch.tensor(x, dtype=torch.float32, device=dev)
+    cams = [Camera(fx=t(180.0, d), fy=t(180.0, d), cx=t(100.0, d),
+                   cy=t(80.0, d), c2w=t(look_at_c2w((0.4, 0.3, 1.8)), d),
+                   width=200, height=160) for d in ("cpu", cuda_device)]
+    chi, origin, spacing, level = poisson_indicator(pts, pts * 2, 48)
+    verts, faces = marching_tetrahedra(chi, float(level), origin,
+                                       float(spacing))
+    for ref, out in (
+            [render_pc_depth(torch.from_numpy(pts).to(c.c2w.device), c.w2c,
+                             c.fx, c.fy, c.cx, c.cy, c.width, c.height, 2)
+             .cpu().numpy() for c in cams],
+            [render_mesh_depth(verts, faces, c, 256).cpu().numpy()
+             for c in cams]):
+        both = (ref > 0) & (out > 0)
+        assert ((ref > 0) != (out > 0)).mean() <= 1e-3 and both.mean() > 0.1
+        assert np.abs(ref[both] - out[both]).max() <= 1e-5

@@ -131,3 +131,42 @@ def test_scene_cli_slice_imports_without_jax_or_pil():
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120, capture_output=True)
+
+
+VISION_CAPTURE_SLICE = (
+    "vision/__init__.py", "vision/dpt.py", "vision/zoedepth.py",
+    "vision/depth_anything.py", "vision/monodepth.py", "utils/resize.py",
+    "tools/random_checkpoint.py", "tools/profile_vision.py", "data/colmap.py",
+    "data/capture_convert.py", "data/capture_tools.py", "data/rosbag.py",
+    "data/pc_depth.py", "data/meshing.py")
+
+
+def test_vision_capture_slice_files_found():
+    for rel in VISION_CAPTURE_SLICE:
+        assert ROOT / "touchgs_torch" / rel in FILES, rel
+
+
+def test_vision_capture_slice_imports_without_jax_or_pil():
+    """The monocular-depth nets and the capture modules import, and the
+    CLI's ``pipeline`` parses, in a process where ``jax``, ``orbax``,
+    ``touchgs_tpu``, ``transformers`` and ``PIL`` cannot be imported."""
+    blocked = FORBIDDEN + ("PIL", "transformers")
+    mods = ["touchgs_torch." + rel[:-3].replace("/", ".").replace(
+        ".__init__", "") for rel in VISION_CAPTURE_SLICE]
+    code = (
+        "import importlib, sys\n"
+        f"for name in list(sys.modules) + list({blocked!r}):\n"
+        f"    if name.split('.')[0] in {blocked!r}:\n"
+        "        sys.modules[name] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from touchgs_torch import cli\n"
+        "try:\n"
+        "    cli.main(['pipeline', '--help'])\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {blocked!r}"
+        " and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120, capture_output=True)

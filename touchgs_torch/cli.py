@@ -22,8 +22,9 @@ Every subcommand that computes runs on the GPU unless ``--cpu`` is given;
 without a GPU it raises (``read-touch-depths`` and ``add-depth-paths`` only
 move files).  On the GPU ``train``, ``eval``, ``render`` and
 ``export-splat`` render through the tile kernels (``use_pallas=True``),
-on the CPU through the scan path (ROADMAP.md C20).  The live viewer and
-the monocular-depth nets are not ported yet (ROADMAP.md A19, A16).
+on the CPU through the scan path (ROADMAP.md C20); ``pipeline``'s
+monocular-depth stage runs its net (``vision/monodepth.VisualPipeline``)
+there too.  The live viewer is not ported yet (ROADMAP.md A19).
 """
 from __future__ import annotations
 
@@ -403,9 +404,8 @@ def cmd_pipeline(args):
     preset matrix): read-touch-depths → gpis-render (when raw touch points
     are given) → monocular depth → fuse → add-depth-paths → seed → train →
     eval, each stage skipped when its outputs already exist
-    (``scripts/train_bunny_real.sh:1-57`` stage order).  The monocular-depth
-    nets are not ported (ROADMAP.md A16), so their output directory must
-    exist.  Returns the eval results."""
+    (``scripts/train_bunny_real.sh:1-57`` stage order).  Returns the eval
+    results."""
     import argparse as _ap
 
     from touchgs_torch.config import SCENE_PRESETS
@@ -441,14 +441,14 @@ def cmd_pipeline(args):
             root=str(root), in_dir="realsense_depth",
             out_dir="realsense_depths", cpu=cpu))
 
-    # 3. monocular depth (run_zoe_depth.py): its nets are not ported
+    # 3. monocular depth (run_zoe_depth.py), skipped if the dir exists
     zoe_dir = root / args.zoe_dir
     if not zoe_dir.exists():
-        raise NotImplementedError(
-            f"{zoe_dir} does not exist, and the monocular-depth stage that "
-            "would write it is not ported yet (ROADMAP.md A16, "
-            "the vision nets, whose weights are not in the repository); "
-            "write the depth maps there, or pass --zoe-dir")
+        print(f"[pipeline] monodepth → {zoe_dir}")
+        from touchgs_torch.vision.monodepth import VisualPipeline
+
+        VisualPipeline(model_type="zoe", weights_path=args.zoe_weights,
+                       device=_device(args)).predict(root / "imgs", zoe_dir)
 
     # 4. fusion (fuse_touch_vision.py; scripts pass --use_uncertainty always)
     fused_dir = root / "fused_output_dir"
@@ -598,8 +598,8 @@ def main(argv=None):
             p.add_argument("--zoe-dir", default="zoe_depth",
                            help="monocular-depth output dir name")
             p.add_argument("--zoe-weights", default=None,
-                           help="monocular-depth weights (not used: the "
-                                "nets are not ported yet)")
+                           help="monocular-depth weights: a ported "
+                                "checkpoint npz or the compact trunk's")
         p.set_defaults(fn=fn)
 
     args = parser.parse_args(argv)

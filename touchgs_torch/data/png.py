@@ -13,12 +13,13 @@ Files of other formats (JPEG) and Adam7-interlaced PNGs go to PIL, imported
 only then; where PIL is absent that raises an ``ImportError`` naming the
 file and its format.
 
-The writer emits 8-bit gray or RGB and 16-bit gray with every row under
-the Up filter, which this reader undoes with one add a row.
+The writer emits 8-bit gray, gray+alpha, RGB or RGBA and 16-bit gray with
+every row under the Up filter, which this reader undoes with one add a row.
 
 ``resize_nearest`` and ``resize_bilinear`` are PIL's ``Image.resize`` with
 ``NEAREST`` and ``BILINEAR`` on 2-D arrays, sample positions and weights
-included.
+included; ``resize_lanczos`` is its ``LANCZOS`` on 8-bit images, in PIL's
+fixed point and with its premultiplied alpha, byte for byte.
 """
 from __future__ import annotations
 
@@ -242,25 +243,42 @@ def read_gray(path: str | os.PathLike) -> np.ndarray:
     raise ValueError(f"{path}: mode {mode} has no 8-bit gray conversion here")
 
 
+def image_size(path: str | os.PathLike) -> tuple[int, int]:
+    """(height, width), from a PNG's IHDR (PIL's ``Image.open(path).size``
+    reversed); another format goes to PIL."""
+    with open(path, "rb") as f:
+        head = f.read(len(SIGNATURE) + 16)
+    if head.startswith(SIGNATURE) and head[12:16] == b"IHDR":
+        width, height = struct.unpack(">II", head[16:24])
+        return height, width
+    with _pil_open(path, "an image that is not a PNG") as im:
+        return im.size[1], im.size[0]
+
+
 def _chunk(ctype: bytes, body: bytes) -> bytes:
     return (struct.pack(">I", len(body)) + ctype + body
             + struct.pack(">I", zlib.crc32(ctype + body)))
 
 
+# channels of an (H, W, C) uint8 array → PNG colour type
+_WRITE_COLOR = {2: 4, 3: 2, 4: 6}
+
+
 def write_png(path: str | os.PathLike, array: np.ndarray) -> None:
-    """Write (H, W) uint8 as 8-bit gray, (H, W, 3) uint8 as 8-bit RGB or
-    (H, W) uint16 as 16-bit gray; every row under the Up filter."""
+    """Write (H, W) uint8 as 8-bit gray, (H, W, 2), (H, W, 3) or (H, W, 4)
+    uint8 as gray+alpha, RGB or RGBA, or (H, W) uint16 as 16-bit gray;
+    every row under the Up filter."""
     a = np.asarray(array)
     if a.dtype == np.uint8 and a.ndim == 2:
         color, depth = 0, 8
-    elif a.dtype == np.uint8 and a.ndim == 3 and a.shape[2] == 3:
-        color, depth = 2, 8
+    elif a.dtype == np.uint8 and a.ndim == 3 and a.shape[2] in _WRITE_COLOR:
+        color, depth = _WRITE_COLOR[a.shape[2]], 8
     elif a.dtype == np.uint16 and a.ndim == 2:
         color, depth = 0, 16
         a = a.astype(">u2")
     else:
         raise ValueError(f"{path}: write_png takes (H, W) uint8 or uint16 or "
-                         f"(H, W, 3) uint8, not {a.shape} {a.dtype}")
+                         f"(H, W, 2 to 4) uint8, not {a.shape} {a.dtype}")
     h, w = a.shape[:2]
     rows = np.ascontiguousarray(a).view(np.uint8).reshape(h, -1)
     up = rows.copy()
@@ -291,22 +309,36 @@ def resize_nearest(a: np.ndarray, width: int, height: int) -> np.ndarray:
     return a[_nearest_index(h, height)][:, _nearest_index(w, width)]
 
 
-def _bilinear_taps(n_in: int, n_out: int) -> tuple[np.ndarray, np.ndarray]:
-    """(n_out, k) source indices and float64 weights of PIL's BILINEAR
-    resampling (``precompute_coeffs`` in ``Resample.c``): a triangle of
-    support 1, stretched by the scale when reducing, normalised a row;
-    unused taps carry weight 0."""
+def _triangle(x: np.ndarray) -> np.ndarray:
+    return np.maximum(1.0 - np.abs(x), 0.0)
+
+
+def _lanczos(x: np.ndarray) -> np.ndarray:
+    """Resample.c's ``lanczos_filter``: sinc(x)·sinc(x/3) on [-3, 3)."""
+    def sinc(t):
+        with np.errstate(invalid="ignore", divide="ignore"):
+            return np.where(t == 0.0, 1.0, np.sin(t * np.pi) / (t * np.pi))
+    return np.where((x >= -3.0) & (x < 3.0), sinc(x) * sinc(x / 3), 0.0)
+
+
+def _bilinear_taps(n_in: int, n_out: int, kernel=_triangle,
+                   support: float = 1.0) -> tuple[np.ndarray, np.ndarray]:
+    """(n_out, k) source indices and float64 weights of PIL's resampling
+    (``precompute_coeffs`` in ``Resample.c``; BILINEAR by default): the
+    kernel of ``support``, stretched by the scale when reducing, normalised
+    a row; unused taps carry weight 0."""
     scale = n_in / n_out
     fscale = max(scale, 1.0)
-    ksize = int(np.ceil(fscale)) * 2 + 1
+    reach = support * fscale
+    ksize = int(np.ceil(reach)) * 2 + 1
     idx = np.zeros((n_out, ksize), np.int64)
     wgt = np.zeros((n_out, ksize))
     for xx in range(n_out):
         center = (xx + 0.5) * scale
-        lo = max(int(center - fscale + 0.5), 0)
-        hi = min(int(center + fscale + 0.5), n_in)
+        lo = max(int(center - reach + 0.5), 0)
+        hi = min(int(center + reach + 0.5), n_in)
         x = np.arange(lo, hi)
-        w = np.maximum(1.0 - np.abs((x - center + 0.5) * (1.0 / fscale)), 0.0)
+        w = kernel((x - center + 0.5) * (1.0 / fscale))
         total = 0.0
         for v in w:              # summed in order, as Resample.c
             total += v
@@ -340,3 +372,56 @@ def resize_bilinear(a: np.ndarray, width: int, height: int) -> np.ndarray:
     if height != h:
         a = np.ascontiguousarray(_resample_rows(a.T, height).T)
     return a
+
+
+PRECISION_BITS = 32 - 8 - 2      # Resample.c's fixed point for 8-bit bands
+
+
+def _lanczos_pass(a: np.ndarray, n_out: int) -> np.ndarray:
+    """PIL's 8-bit horizontal pass over axis 1 of (H, W, C) uint8: each
+    weight rounded to PRECISION_BITS (half away from zero), integer sums
+    from half a unit, clipped to 0..255."""
+    idx, wgt = _bilinear_taps(a.shape[1], n_out, _lanczos, 3.0)
+    scaled = wgt * (1 << PRECISION_BITS)
+    k = np.trunc(np.where(wgt < 0, scaled - 0.5, scaled + 0.5)).astype(
+        np.int64)
+    acc = np.full((a.shape[0], n_out, a.shape[2]), 1 << (PRECISION_BITS - 1),
+                  np.int64)
+    for t in range(idx.shape[1]):
+        acc += a[:, idx[:, t]].astype(np.int64) * k[None, :, t, None]
+    return np.clip(acc >> PRECISION_BITS, 0, 255).astype(np.uint8)
+
+
+def _muldiv255(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    t = a.astype(np.uint32) * b + 128
+    return ((t >> 8) + t) >> 8
+
+
+def resize_lanczos(a: np.ndarray, width: int, height: int) -> np.ndarray:
+    """``Image.fromarray(a).resize((width, height), Image.LANCZOS)`` for a
+    uint8 image of mode L (H, W), LA (H, W, 2), RGB (H, W, 3) or RGBA
+    (H, W, 4): the horizontal pass first, then the vertical one; with an
+    alpha band, the colour premultiplied by it before (PIL's RGBa, La) and
+    divided back after."""
+    a = np.asarray(a)
+    if a.dtype != np.uint8 or a.ndim not in (2, 3) or (
+            a.ndim == 3 and a.shape[2] not in (2, 3, 4)):
+        raise ValueError(f"resize_lanczos takes an 8-bit L, LA, RGB or RGBA "
+                         f"array, not {a.shape} {a.dtype}")
+    x = a[..., None] if a.ndim == 2 else a
+    alpha = x.shape[2] in (2, 4)
+    if alpha:
+        x = x.copy()
+        x[..., :-1] = _muldiv255(x[..., :-1], x[..., -1:].astype(np.uint32))
+    h, w = x.shape[:2]
+    if width != w:
+        x = _lanczos_pass(x, width)
+    if height != h:
+        x = _lanczos_pass(x.transpose(1, 0, 2), height).transpose(1, 0, 2)
+    x = np.ascontiguousarray(x)
+    if alpha:
+        al = x[..., -1:].astype(np.uint32)
+        div = np.minimum(255 * x[..., :-1].astype(np.uint32)
+                         // np.maximum(al, 1), 255)
+        x[..., :-1] = np.where((al == 0) | (al == 255), x[..., :-1], div)
+    return x[..., 0] if a.ndim == 2 else x
