@@ -85,6 +85,29 @@ Phases (any failure raises, and the script exits nonzero with no result):
    and ``point_cloud_to_depth_via_mesh`` (grid 96) on the scale demo's GT
    points, card against CPU, and the mesh's depth against the lossless GT
    render on the sphere.
+4f. The DenseTact sensor stack (``phase_sensor``): DenseDepth and
+   DenseNet_Force (numpy-seeded DenseNet-161 inits written as npz and
+   loaded through ``DenseTactSensor(depth_weights=, force_weights=)``) and
+   STForce (``random_checkpoint("stforce")``) at 640x640 on the CPU and on
+   the card, within SENSOR_TOL of the output's range, the TF32 run shown
+   to miss it; ms an image, peak memory, the operations and their bound;
+   every 3x3 shape of the two DenseNets timed unfolded and through cuDNN,
+   the port's way within 1.5x of the faster, and each DenseNet with and
+   without ``densetact_nets.CUDNN_3X3`` in turns.  Then ``SensorLoop`` at
+   30 Hz over 60 synthetic 640x640 frames with a seeded calib remap and
+   the faithful nets, with and without its PNG and csv writes (per-stage
+   median and 90th percentile, frames over the 33.3 ms period), and 10
+   frames through the compact nets; then 20 steps of each sensor train
+   step at batch 4 x 640² (losses finite and falling) and one step of the
+   depth and the force net on the card against the CPU.  The launch
+   counters are set to 0 just before and read after (``launches_sensor``
+   in the kernels line: no kernel of the port's is on this path).
+4g. The depth-supervised NeRF (``phase_nerf``): phase 4d's scene written
+   and loaded again (its GT through K1 and K2), ``NerfTrainer`` at
+   ``NerfConfig()``: 300 DS-NeRF steps (the loss falls) and 50 URF steps
+   with σ decay, it/s, ``render_view`` of a held-out view with its PSNR and
+   time, and one step on the card against the CPU with injected uniforms
+   (``launches_nerf`` in the kernels line, from the scene's GT renders).
 5. The profiling path: ``python -m touchgs_torch.tools.exp_kernel_anatomy
    --bf16``'s work (K4, the flagship's tiles at k_chunk 128, K2 with and
    without its exit, the four K5 ablations, the two K6 probe legs), with
@@ -104,8 +127,8 @@ Phases (any failure raises, and the script exits nonzero with no result):
    launches and the computed ``bound_ms``; ``launches`` from the
    training path for its kernels, from the anatomy path for the others;
    the training path's kernels also carry ``launches_hard_scene``,
-   ``launches_cli``, ``launches_pipeline`` and,
-   under ``hard_scene``, their errors, times and bounds at both of its
+   ``launches_cli``, ``launches_pipeline``, ``launches_sensor``,
+   ``launches_nerf`` and, under ``hard_scene``, their errors, times and bounds at both of its
    k_tiles),
    then the last line
    ``{"ok": true, "device": {...}}``.
@@ -114,7 +137,11 @@ Without a CUDA device it exits with status 1 before doing anything.
 
     python3 chip_smoke.py --vision
 
-runs phase 4e alone.
+runs phase 4e alone, and
+
+    python3 chip_smoke.py --sensor
+
+phases 4f and 4g alone.
 
     python3 chip_smoke.py --ab OLD_CSRC
 
@@ -188,6 +215,20 @@ VISION_TOL = 1e-4
 # (sparse) depths, ZoeD_N at full width in stage 3
 PIPE_TOUCHES, PIPE_STEPS = 256, 100
 MESH_GRID = 96
+# phase 4f, the DenseTact sensor stack at the published widths (640² input,
+# cam_ros.py:113,125) on random weights (``tools/random_checkpoint.py``)
+SENSOR_SIZE, SENSOR_SEED = 640, 13
+SENSOR_NETS = ("densetact_depth", "densetact_force", "stforce")
+# max |card − CPU| over the output's range, as phase 4e's VISION_TOL
+SENSOR_TOL = 1e-4
+LOOP_FRAMES, LOOP_COMPACT_FRAMES, LOOP_HZ = 60, 10, 30.0
+# the JAX package's own train-step tests' rates: 2e-4 for the depth net
+# ("higher lr saturates the sigmoid head", tests/test_sensor_losses.py:194;
+# at 1e-3 the silog run sat at 10.307 from step 6 on an H100), 1e-3 force
+TRAIN_BATCH, TRAIN_STEPS = 4, 20
+TRAIN_LR = {"densetact": 2e-4, "silog": 2e-4, "force": 1e-3}
+# phase 4g, the NeRF at NerfConfig() on phase 4d's scene
+NERF_DS_STEPS, NERF_URF_STEPS = 300, 50
 
 
 def bound(nbytes: float, fp32_ops: float = 0.0,
@@ -1767,6 +1808,472 @@ def phase_vision(card: str, dev=torch.device("cuda")) -> dict:
     return counts
 
 
+def sensor_frame(seed: int = SENSOR_SEED) -> np.ndarray:
+    """A SENSOR_SIZE² tactile frame: `SyntheticSource`'s bump with seeded
+    noise, uint8."""
+    from touchgs_torch.touch.sensor_loop import SyntheticSource
+
+    frame = next(iter(SyntheticSource(SENSOR_SIZE, 1).frames()))
+    noise = np.random.default_rng(seed).integers(-20, 21, frame.shape)
+    return np.clip(frame.astype(np.int64) + noise, 0, 255).astype(np.uint8)
+
+
+def calib_remap(size: int, seed: int) -> np.ndarray:
+    """A seeded fisheye-like remap of a size² frame onto itself: output
+    pixel (y, x) reads the raw pixel at its radius scaled by 1 + k·r² (k
+    drawn from the seed), plus a seeded jitter of a third of a pixel; flat
+    indices."""
+    rng = np.random.default_rng(seed)
+    k = rng.uniform(0.05, 0.15)
+    c = (size - 1) / 2
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float64)
+    u, v = (xx - c) / c, (yy - c) / c
+    s = (1 + k * (u * u + v * v)) / (1 + 2 * k)
+    sx, sy = (np.clip(np.rint(c + a * s * c + rng.normal(0, 0.3, a.shape)),
+                      0, size - 1).astype(np.int64) for a in (u, v))
+    return sy * size + sx
+
+
+def flops_of(fn) -> float:
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return float(counter.get_total_flops())
+
+
+def table_ab(fn) -> dict:
+    """``fn``'s ms (median over CUDA events) with ``densetact_nets.
+    CUDNN_3X3`` as it is and with every stride-1 3×3 unfolded, in turns
+    (table, unfold, unfold, table)."""
+    from touchgs_torch.touch import densetact_nets
+
+    table = densetact_nets.CUDNN_3X3
+    out = {"table": [], "unfold": []}
+    try:
+        for mode in ("table", "unfold", "unfold", "table"):
+            densetact_nets.CUDNN_3X3 = table if mode == "table" else frozenset()
+            out[mode].append(median_ms(fn, iters=5))
+    finally:
+        densetact_nets.CUDNN_3X3 = table
+    return out
+
+
+def phase_sensor_nets(tmp, card: str, dev) -> dict:
+    """Phase 4f (a): DenseDepth and DenseNet_Force (``random_checkpoint``'s
+    numpy-seeded DenseNet inits, written as npz and loaded through
+    ``DenseTactSensor(depth_weights=..., force_weights=...)``) and STForce
+    at ``STFORCE_SWIN`` (``random_checkpoint("stforce")``, read back by
+    ``STForce.from_npz``), at their published widths on one seeded
+    SENSOR_SIZE² frame, on the CPU and on the card: max |card − CPU|
+    within SENSOR_TOL of the output's range; ms an image (median over CUDA
+    events), peak memory, the operations (``FlopCounterMode``) and the bound
+    at the fp32 peak, and the TF32 run's error for contrast.  Then every
+    stride-1 3×3 shape of the two DenseNets timed as unfold + matmul and
+    through cuDNN (``profile_vision.conv_shapes``): the way the port takes
+    (``densetact_nets.CUDNN_3X3``) within 1.5x of the faster.  The TF32
+    run must miss SENSOR_TOL, so that the tolerance tells TF32 from fp32.
+    Each DenseNet is also timed with that table and without it, in turns
+    (`table_ab`).
+    Returns {net: npz}."""
+    from pathlib import Path
+
+    from touchgs_torch.tools import profile_vision
+    from touchgs_torch.tools.random_checkpoint import (SENSOR_ARCHS,
+                                                       random_checkpoint)
+    from touchgs_torch.touch import swin_force
+    from touchgs_torch.touch.sensor_nets import (DenseTactSensor,
+                                                 normalize_tactile)
+
+    frame = sensor_frame()
+    paths = {}
+    for kind in SENSOR_NETS:
+        t0 = time.perf_counter()
+        paths[kind] = Path(tmp) / f"{kind}.npz"
+        np.savez(paths[kind], **random_checkpoint(kind, SENSOR_ARCHS[kind][1],
+                                                  SENSOR_SEED))
+        print(f"sensor: {kind} npz written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    weights = dict(depth_weights=str(paths["densetact_depth"]),
+                   force_weights=str(paths["densetact_force"]))
+    sensors = {d: DenseTactSensor(device=d, **weights) for d in ("cpu", dev)}
+    check(all(s._faithful_depth and s._faithful_force
+              for s in sensors.values()), "DenseTactSensor did not pick the "
+          "faithful nets for ported npz files")
+    stforce = swin_force.STForce.from_npz(paths["stforce"])
+    check(stforce.arch == swin_force.STFORCE_SWIN,
+          f"stforce: arch {stforce.arch}")
+    nets = {"densetact_depth": {d: s.depth_net for d, s in sensors.items()},
+            "densetact_force": {d: s.force_net for d, s in sensors.items()},
+            "stforce": {"cpu": stforce}}
+    rows = {}
+    for kind in SENSOR_NETS:
+        model = nets[kind]["cpu"]
+        x = normalize_tactile(torch.as_tensor(frame.astype(np.float32)))
+        n_params = sum(p.numel() for p in model.parameters())
+        t0 = time.perf_counter()
+        ref = model(x)
+        t_cpu = time.perf_counter() - t0
+        card_model = nets[kind].get(dev) or model.to(dev)
+        xc = x.to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = card_model(xc).cpu()
+        peak = torch.cuda.max_memory_allocated()
+        ms = median_ms(lambda: card_model(xc), iters=10, warmup=3)
+        ops = flops_of(lambda: card_model(xc))
+        bound_ms, _ = bound(0.0, fp32_ops=ops)
+        scale = max(float(ref.max() - ref.min()), 1e-30)
+        err = float((out - ref).abs().max()) / scale
+        prev = (torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.allow_tf32)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            with torch.no_grad():
+                out32 = type(card_model).forward(card_model, xc).cpu()
+        finally:
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = prev
+        err32 = float((out32 - ref).abs().max()) / scale
+        rows[kind] = dict(params=n_params, gflop=ops / 1e9, ms=ms,
+                          bound_ms=bound_ms, tflops=ops / ms / 1e9,
+                          peak_gib=peak / 2**30, err=err, err_tf32=err32,
+                          out_min=float(ref.min()), out_max=float(ref.max()),
+                          cpu_s=t_cpu)
+        print(f"sensor: {kind} ({n_params} parameters, {SENSOR_SIZE}²): "
+              f"{ms:.3f} ms an image on the card, {ops / 1e9:.1f} GFLOP, "
+              f"bound {bound_ms:.3f} ms at the fp32 peak "
+              f"({100 * bound_ms / ms:.1f}%), peak {peak / 2**30:.3f} GiB; "
+              f"output {float(ref.min()):.4f}..{float(ref.max()):.4f}; card "
+              f"against CPU {err:.3e} of its range (tolerance "
+              f"{SENSOR_TOL:.0e}), with TF32 on {err32:.3e}; CPU forward "
+              f"{t_cpu:.2f} s", flush=True)
+        check(out.shape == ref.shape and bool(torch.isfinite(out).all())
+              and scale > 1e-6, f"sensor {kind}: shape {tuple(out.shape)}, "
+              f"range {scale}")
+        check(err <= SENSOR_TOL, f"sensor {kind}: card against CPU "
+              f"{err:.3e} of its range, over {SENSOR_TOL:.0e}")
+        check(err32 > SENSOR_TOL, f"sensor {kind}: the TF32 run reads "
+              f"{err32:.3e}, inside {SENSOR_TOL:.0e}: the tolerance cannot "
+              "tell TF32 from fp32")
+        if kind != "stforce":
+            shapes = profile_vision.conv_shapes(card_model, xc)
+            rows[kind]["conv_shapes"] = shapes
+            for r in shapes:
+                print(f"sensor: {kind} 3x3 conv x {r['x']} w {r['w']} "
+                      f"x{r['calls']}: unfold {r['unfold_ms']:.3f} ms, "
+                      f"cuDNN {r['cudnn_ms']:.3f} ms; faster {r['faster']}, "
+                      f"the port takes {r['port']}", flush=True)
+                ms = {"unfold": r["unfold_ms"], "cudnn": r["cudnn_ms"]}
+                check(ms[r["port"]] <= 1.5 * min(ms.values()),
+                      f"sensor {kind}: the port's {r['port']} conv at "
+                      f"{r['x']} takes {ms[r['port']]:.3f} ms, over 1.5x "
+                      f"the other way's {min(ms.values()):.3f}")
+            ab = table_ab(lambda: card_model(xc))
+            rows[kind]["ms_table_ab"] = ab
+            print(f"sensor: {kind} with the port's CUDNN_3X3 "
+                  f"{ab['table']} ms, every 3x3 unfolded {ab['unfold']} ms "
+                  "(in turns)", flush=True)
+        if kind == "stforce":
+            stforce.to("cpu")
+        del out, out32, xc
+        torch.cuda.empty_cache()
+    print(f"sensor: nets {json.dumps(rows)} on {card}")
+    return paths
+
+
+def loop_stats(loop) -> dict:
+    """Per stage the median and 90th percentile ms of a `SensorLoop` run,
+    and the frames whose total ran over the period."""
+    from touchgs_torch.touch.sensor_loop import STAGES
+
+    out = {}
+    for stage in STAGES + ("total",):
+        ms = np.array([t[stage] for t in loop.frame_times]) * 1e3
+        out[stage] = dict(median_ms=float(np.median(ms)),
+                          p90_ms=float(np.percentile(ms, 90)))
+    period = 1.0 / loop.rate_hz
+    out["frames"] = len(loop.frame_times)
+    out["over_period"] = int(sum(t["total"] > period
+                                 for t in loop.frame_times))
+    return out
+
+
+def phase_sensor_loop(tmp, paths, card: str, dev) -> None:
+    """Phase 4f (b): `SensorLoop`, the reference's RunCamera, over
+    LOOP_FRAMES `SyntheticSource` frames of SENSOR_SIZE² with a seeded
+    calib remap and the faithful depth and force nets on the card, at
+    LOOP_HZ: once writing PNGs and force.csv, once without; then
+    LOOP_COMPACT_FRAMES frames through the compact nets.  Prints each
+    stage's median and 90th percentile and the frames over the period."""
+    from pathlib import Path
+
+    from touchgs_torch.data.png import read_png
+    from touchgs_torch.touch.sensor_loop import SensorLoop, SyntheticSource
+    from touchgs_torch.touch.sensor_nets import DenseTactSensor
+
+    remap = calib_remap(SENSOR_SIZE, SENSOR_SEED)
+    sensor = DenseTactSensor(
+        calib_index=remap, device=dev,
+        depth_weights=str(paths["densetact_depth"]),
+        force_weights=str(paths["densetact_force"]))
+    first = sensor.rectify(sensor_frame())
+    sensor.get_depth(first), sensor.get_force(first)       # warm-up
+    stats = {}
+    for name, out in (("writes", Path(tmp) / "loop"), ("no_writes", None)):
+        loop = SensorLoop(sensor=sensor, out_dir=out, rate_hz=LOOP_HZ)
+        t0 = time.perf_counter()
+        n = loop.run(SyntheticSource(SENSOR_SIZE, LOOP_FRAMES,
+                                     seed=SENSOR_SEED))
+        wall = time.perf_counter() - t0
+        check(n == LOOP_FRAMES, f"sensor loop: {n} frames of {LOOP_FRAMES}")
+        stats[name] = loop_stats(loop)
+        stats[name]["wall_s"] = wall
+        if out is not None:
+            depths = sorted((out / "depth").iterdir())
+            d = read_png(depths[-1])
+            rows = (out / "force.csv").read_text().splitlines()
+            check(len(depths) == LOOP_FRAMES and d.dtype == np.uint8
+                  and d.shape == (SENSOR_SIZE, SENSOR_SIZE)
+                  and rows[0] == "index,fx,fy,fz,tx,ty,tz"
+                  and len(rows) == LOOP_FRAMES + 1,
+                  f"sensor loop: {len(depths)} depth PNGs {d.shape}, "
+                  f"{len(rows)} force rows")
+        print(f"sensor: loop ({name}) {n} frames in {wall:.2f} s at "
+              f"{LOOP_HZ} Hz, {stats[name]['over_period']} over the "
+              f"{1e3 / LOOP_HZ:.1f} ms period; " + ", ".join(
+                  f"{s} {v['median_ms']:.2f}/{v['p90_ms']:.2f} ms"
+                  for s, v in stats[name].items() if isinstance(v, dict)),
+              flush=True)
+    compact = DenseTactSensor(device=dev)
+    compact.get_depth(first), compact.get_force(first)
+    loop = SensorLoop(sensor=compact, rate_hz=LOOP_HZ)
+    check(loop.run(SyntheticSource(SENSOR_SIZE, LOOP_COMPACT_FRAMES))
+          == LOOP_COMPACT_FRAMES, "sensor loop: the compact nets' frames")
+    stats["compact"] = loop_stats(loop)
+    print(f"sensor: loop {json.dumps(stats)} (median/p90 ms a stage) on "
+          f"{card}")
+
+
+def sensor_train_batch():
+    """TRAIN_BATCH `SyntheticSource` frames of SENSOR_SIZE², their bump as
+    the depth target (20..220) and seeded 6-vectors in [0, 1]."""
+    from touchgs_torch.touch.sensor_loop import SyntheticSource
+
+    images = np.stack(list(SyntheticSource(SENSOR_SIZE, TRAIN_BATCH)
+                           .frames())).astype(np.float32)
+    depths = (images[..., 0] - 120.0) / 80.0 * 200.0 + 20.0
+    forces = np.random.default_rng(SENSOR_SEED).uniform(
+        0, 1, (TRAIN_BATCH, 6)).astype(np.float32)
+    return images, depths.astype(np.float32), forces
+
+
+def sensor_train_step(kind, dev, seed: int = SENSOR_SEED):
+    """A fresh compact net on ``dev`` (flax's init from a seeded generator)
+    and its train step."""
+    from touchgs_torch.touch import sensor_nets as sn
+    from touchgs_torch.touch import sensor_train as st
+
+    net = sn.flax_init_(sn.ForceNet() if kind == "force"
+                        else sn.TouchDepthNet(),
+                        torch.Generator().manual_seed(seed)).to(dev)
+    opt = torch.optim.Adam(net.parameters(), lr=TRAIN_LR[kind], eps=1e-8)
+    step = (st.make_force_train_step(net, opt) if kind == "force" else
+            st.make_depth_train_step(net, opt, loss=kind))
+    return net, step
+
+
+def phase_sensor_train(card: str, dev) -> None:
+    """Phase 4f (c): ``make_depth_train_step`` ("densetact" and "silog") on
+    `TouchDepthNet` and ``make_force_train_step`` on `ForceNet` at
+    SENSOR_SIZE² with a batch of TRAIN_BATCH: TRAIN_STEPS steps each on the
+    seeded batch, the loss finite and falling (the last three steps' mean
+    under the first), the median step (CUDA
+    events); then one step of each net on the card against one on the CPU
+    from the same parameters: the loss within rtol 1e-4, the parameters
+    after within 3·lr everywhere and within 1e-5 at 95% of them (Adam turns
+    float32 noise in near-zero gradients into steps of up to lr; the CPU
+    tests measured at most 2.5%); TRAIN_LR is the JAX package's tests'
+    rate for each net."""
+    images, depths, forces = sensor_train_batch()
+    rows = {}
+    for kind in ("densetact", "silog", "force"):
+        target = forces if kind == "force" else depths
+        x, y = (torch.as_tensor(a, device=dev) for a in (images, target))
+        _, step = sensor_train_step(kind, dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = [], []
+        for _ in range(TRAIN_STEPS):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            m = step(x, y)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+            losses.append(float(m["loss"]))
+        rows[kind] = dict(step_ms=float(np.median(times[1:])),
+                          first_step_ms=times[0], loss_first=losses[0],
+                          loss_last=losses[-1],
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        print(f"sensor: train {kind}: {TRAIN_STEPS} steps at batch "
+              f"{TRAIN_BATCH} x {SENSOR_SIZE}², median "
+              f"{rows[kind]['step_ms']:.2f} ms a step (first "
+              f"{times[0]:.1f}), loss {losses[0]:.5f} -> {losses[-1]:.5f}, "
+              f"peak {rows[kind]['peak_gib']:.3f} GiB", flush=True)
+        check(all(np.isfinite(losses)) and np.mean(losses[-3:]) < losses[0],
+              f"sensor train {kind}: losses {losses}")
+    for kind in ("densetact", "force"):
+        target = forces if kind == "force" else depths
+        nets, metrics = {}, {}
+        for d in ("cpu", dev):
+            nets[d], step = sensor_train_step(kind, d, seed=SENSOR_SEED + 1)
+            metrics[d] = float(step(torch.as_tensor(images, device=d),
+                                    torch.as_tensor(target, device=d))["loss"])
+        with torch.no_grad():
+            diff = torch.cat([(p.cpu() - q).abs().flatten() for p, q in zip(
+                nets[dev].parameters(), nets["cpu"].parameters())])
+        share, worst = float((diff > 1e-5).float().mean()), float(diff.max())
+        rel = abs(metrics[dev] - metrics["cpu"]) / abs(metrics["cpu"])
+        rows[kind].update(card_vs_cpu_loss_rel=rel, params_apart=share,
+                          params_max=worst)
+        print(f"sensor: train {kind} one step card against CPU: loss "
+              f"{metrics[dev]:.6f} / {metrics['cpu']:.6f} ({rel:.2e} "
+              f"apart), {share:.3%} of the parameters more than 1e-5 apart, "
+              f"at most {worst:.3e} (lr {TRAIN_LR[kind]})", flush=True)
+        check(rel <= 1e-4 and share <= 0.05 and worst <= 3 * TRAIN_LR[kind],
+              f"sensor train {kind}: card against CPU loss {rel:.2e}, "
+              f"parameters {share:.3%} apart, at most {worst:.3e}")
+    print(f"sensor: train {json.dumps(rows)} on {card}")
+
+
+def phase_sensor(card: str, dev=torch.device("cuda")) -> dict:
+    """Phase 4f: the DenseTact sensor stack (`phase_sensor_nets`,
+    `phase_sensor_loop`, `phase_sensor_train`), with the launch counters
+    set to 0 just before and read just after (no kernel of the port's is
+    on this path); its npz files live in a temporary directory removed at
+    the end.  Returns the launch counts."""
+    import tempfile
+
+    from touchgs_torch.ops import rasterize_cuda as rc
+
+    t0 = time.perf_counter()
+    zero_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = phase_sensor_nets(tmp, card, dev)
+        torch.cuda.empty_cache()
+        phase_sensor_loop(tmp, paths, card, dev)
+    torch.cuda.empty_cache()
+    phase_sensor_train(card, dev)
+    counts = dict(rc.launches)
+    torch.cuda.empty_cache()
+    print(f"sensor: phase 4f {time.perf_counter() - t0:.1f} s; launches "
+          f"{counts}")
+    return counts
+
+
+def phase_nerf(card: str, dev=torch.device("cuda")) -> dict:
+    """Phase 4g: the depth-supervised NeRF, ``NerfTrainer`` at
+    ``NerfConfig()`` (8 levels of 2^15 entries, 4096 rays of 48 + 48
+    samples, MLP width 64) on phase 4d's scene (`write_scene`: CLI_VIEWS
+    views of CLI_SIZE², its GT rendered through K1 and K2, loaded by
+    ``load_scene``): NERF_DS_STEPS steps with DS-NeRF, NERF_URF_STEPS with
+    URF and σ decay; it/s, the loss at the start and the end (falling, for
+    DS-NeRF), ``render_view`` of a held-out view (its PSNR against the GT
+    and its time); then one step on the card against one on the CPU from
+    the same parameters and pixels with injected uniforms: every metric
+    within rtol 1e-4, the parameters within 3·lr everywhere and within
+    1e-5 at 95% of them.  The launch counters are set to 0 just before and
+    read just after.  Returns the launch counts."""
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    from touchgs_torch.config import SCENE_PRESETS
+    from touchgs_torch.data.scene import load_scene
+    from touchgs_torch.models import nerf
+    from touchgs_torch.ops import rasterize_cuda as rc
+    from touchgs_torch.tools.write_scene import write_scene
+
+    t_phase = time.perf_counter()
+    zero_launches()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "nerf_scene"
+        write_scene(root, CLI_VIEWS, CLI_SIZE, CLI_SEEDS, "cuda")
+        scene = load_scene(root, train_split_fraction=SCENE_PRESETS[
+            "bunny_blender"].train_split_fraction)
+    rows = {}
+    cfg = nerf.NerfConfig()
+    for name, c, steps, log_every in (
+            ("ds_nerf", cfg, NERF_DS_STEPS, 50),
+            ("urf", dataclasses.replace(
+                cfg, depth_loss_type=nerf.NerfDepthLossType.URF,
+                should_decay_sigma=True), NERF_URF_STEPS, 10)):
+        trainer = nerf.NerfTrainer(scene, c, seed=0, device=dev)
+        trainer.run(3)                                   # warm-up
+        log = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.run(steps, log_every=log_every, log_fn=log.append)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rows[name] = dict(steps=steps, it_s=steps / wall,
+                          loss_first=log[0]["loss"], loss_last=log[-1]["loss"],
+                          psnr_first=log[0]["psnr"], psnr_last=log[-1]["psnr"],
+                          sigma=float(trainer.sigma))
+        check(all(np.isfinite(m["loss"]) for m in log),
+              f"nerf {name}: losses {[m['loss'] for m in log]}")
+        if name == "ds_nerf":
+            check(log[-1]["loss"] < log[0]["loss"], "nerf ds_nerf: the loss "
+                  f"did not fall: {log[0]['loss']} -> {log[-1]['loss']}")
+            view = int(scene.i_eval[0])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            img = trainer.render_view(view)
+            render_s = time.perf_counter() - t0
+            mse = float(np.mean((np.clip(img, 0, 1) - scene.images[view])
+                                ** 2))
+            rows[name].update(render_view=view, render_s=render_s,
+                              psnr_view=-10 * np.log10(max(mse, 1e-10)))
+            check(img.shape == scene.images[view].shape
+                  and np.isfinite(img).all(), f"nerf render {img.shape}")
+        print(f"nerf: {name} {json.dumps(rows[name])}", flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+    counts = dict(rc.launches)
+
+    # one step on the card against one on the CPU, JAX-free injected draws
+    u = nerf.draw_uniforms(cfg, cfg.rays_per_batch,
+                           torch.Generator().manual_seed(5))
+    logs = {}
+    models = {}
+    for d in ("cpu", dev):
+        tr = nerf.NerfTrainer(scene, cfg, seed=0, device=d)
+        tr.draw_uniforms = lambda d=d: tuple(a.to(d) for a in u)
+        logs[d] = tr.run(1)
+        models[d] = tr.model
+    rel = max(abs(logs[dev][k] - logs["cpu"][k]) / max(abs(logs["cpu"][k]),
+                                                       1e-12)
+              for k in ("loss", "rgb_loss", "depth_loss", "distortion",
+                        "psnr"))
+    with torch.no_grad():
+        diff = torch.cat([(p.cpu() - q).abs().flatten() for p, q in zip(
+            models[dev].parameters(), models["cpu"].parameters())])
+    share, worst = float((diff > 1e-5).float().mean()), float(diff.max())
+    rows["card_vs_cpu"] = dict(metrics_rel=rel, params_apart=share,
+                               params_max=worst)
+    print(f"nerf: one step card against CPU: metrics {rel:.2e} apart "
+          f"(rtol 1e-4), {share:.3%} of the parameters more than 1e-5 "
+          f"apart, at most {worst:.3e} (lr {cfg.lr})", flush=True)
+    check(rel <= 1e-4 and share <= 0.05 and worst <= 3 * cfg.lr,
+          f"nerf card against CPU: metrics {rel:.2e}, parameters "
+          f"{share:.3%} apart, at most {worst:.3e}")
+    print(f"nerf: {json.dumps(rows)} on {card}; phase 4g "
+          f"{time.perf_counter() - t_phase:.1f} s; launches {counts}")
+    return counts
+
+
 def phase_profile(trainer, steps: int = PROFILE_STEPS,
                   label: str = "profile") -> None:
     """Device time by kernel over a few more training steps, from
@@ -2194,6 +2701,13 @@ def main() -> int:
         print(card(), flush=True)
         phase_vision(card())
         return 0
+    if sys.argv[1:] == ["--sensor"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(card(), flush=True)
+        phase_sensor(card())
+        phase_nerf(card())
+        return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--ab":
         print(card(), flush=True)
         phase_ab(torch.device("cuda"), sys.argv[2])
@@ -2228,6 +2742,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     pipeline_counts = phase_vision(card_name)
     torch.cuda.empty_cache()
+    sensor_counts = phase_sensor(card_name)
+    nerf_counts = phase_nerf(card_name)
+    torch.cuda.empty_cache()
     path_counts, x, probe = phase_anatomy_path()
     kernels += [k4] + phase_anatomy(x, probe, loops)
     # a kernel of the training path counts its launches there, any other
@@ -2240,6 +2757,8 @@ def main() -> int:
             k["launches_hard_scene"] = touch_counts[k["name"]]
             k["launches_cli"] = cli_counts[k["name"]]
             k["launches_pipeline"] = pipeline_counts[k["name"]]
+            k["launches_sensor"] = sensor_counts[k["name"]]
+            k["launches_nerf"] = nerf_counts[k["name"]]
             k["hard_scene"] = touch_kernels[k["name"]]
     print(f"chip_smoke: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

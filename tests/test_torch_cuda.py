@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a GPU.
 
-Every test here needs a CUDA device and skips without one: the kernels have
-no CPU mode.  The file imports neither JAX nor the JAX package, so it also
+Every test here but the device rule's needs a CUDA device and skips
+without one: the kernels have no CPU mode.  The file imports neither JAX nor the JAX package, so it also
 runs where JAX is not installed; on a GPU machine run it with
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -853,3 +853,104 @@ def test_capture_renders_on_card_match_cpu(cuda_device):
         both = (ref > 0) & (out > 0)
         assert ((ref > 0) != (out > 0)).mean() <= 1e-3 and both.mean() > 0.1
         assert np.abs(ref[both] - out[both]).max() <= 1e-5
+
+
+# ----------------------------------------------- sensor nets and NeRF --
+
+SMALL_DENSENET = dict(init_features=16, growth=8, blocks=(2, 2, 2, 2),
+                      bn_size=2)
+
+
+def small_sensor_net(net: str, seed: int = 0):
+    """A sensor net of ``touchgs_torch.touch`` at narrow widths with the
+    published structure, on a random checkpoint drawn as
+    ``random_checkpoint`` draws the full-width ones."""
+    from touchgs_torch.tools.random_checkpoint import random_checkpoint
+    from touchgs_torch.touch import densetact_nets as dt
+    from touchgs_torch.touch import swin_force as sw
+
+    if net == "stforce":
+        arch = sw.SwinArch(img_size=64, patch_size=4, embed_dim=24,
+                           depths=(2, 2), num_heads=(2, 4), window_size=8,
+                           num_classes=10)
+        return sw.STForce(random_checkpoint("stforce", arch, seed), arch)
+    cls = dt.DenseDepth if net == "densetact_depth" else dt.DenseNetForce
+    return cls(random_checkpoint(net, SMALL_DENSENET, seed), SMALL_DENSENET)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("net", ["densetact_depth", "densetact_force",
+                                 "stforce"])
+def test_sensor_net_on_card_matches_cpu(cuda_device, net):
+    """Each faithful sensor net on the card against the CPU at fp32 with
+    TF32 off (the nets' own guard): within 1e-4 of the output's range."""
+    from touchgs_torch.touch.sensor_nets import normalize_tactile
+
+    model = small_sensor_net(net)
+    img = normalize_tactile(torch.from_numpy(np.random.default_rng(6).integers(
+        0, 256, (64, 64, 3)).astype(np.float32)))
+    ref = model(img)
+    out = model.to(cuda_device)(img.to(cuda_device)).cpu()
+    scale = float(ref.max() - ref.min())
+    assert out.shape == ref.shape and scale > 0
+    assert float((out - ref).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.cuda
+def test_compact_sensor_on_card_matches_cpu(cuda_device):
+    """``DenseTactSensor``'s compact nets (random from the same seed) on the
+    card against the CPU: depth within 1e-4 of its range, the wrench within
+    1e-5, the uint8 depth at most one level apart."""
+    from touchgs_torch.touch.sensor_nets import DenseTactSensor
+
+    img = np.random.default_rng(7).integers(0, 256, (96, 96, 3), np.uint8)
+    cpu, card = DenseTactSensor(device="cpu"), DenseTactSensor()
+    assert card.device.type == "cuda"
+    ref, out = cpu.depth(img), card.depth(img).cpu()
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.max() - ref.min())
+    assert np.abs(cpu.get_depth(img).astype(int)
+                  - card.get_depth(img).astype(int)).max() <= 1
+    np.testing.assert_allclose(card.get_force(img), cpu.get_force(img),
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_nerf_step_on_card_matches_cpu(cuda_device):
+    """One ``NerfTrainer`` step on the card against the CPU at a small
+    config, from the same parameters and pixels with the same injected
+    uniforms: every metric within rtol 1e-4."""
+    from touchgs_torch.models import nerf
+
+    cfg = nerf.NerfConfig(num_levels=4, hash_size=2**12, base_res=4,
+                          max_res=64, mlp_width=32, num_coarse=24,
+                          num_fine=24, rays_per_batch=512, near=0.5, far=4.0)
+    u = nerf.draw_uniforms(cfg, cfg.rays_per_batch,
+                           torch.Generator().manual_seed(1))
+    logs = {}
+    for dev in ("cpu", cuda_device):
+        trainer = nerf.NerfTrainer(card_scene(), cfg, device=dev)
+        trainer.draw_uniforms = lambda dev=dev: tuple(a.to(dev) for a in u)
+        logs[str(dev)] = trainer.run(1)
+    for k, v in logs["cpu"].items():
+        np.testing.assert_allclose(logs[str(cuda_device)][k], v, rtol=1e-4,
+                                   err_msg=k)
+
+
+def test_sensor_and_nerf_run_on_the_card_unless_asked_for_the_cpu():
+    """``DenseTactSensor`` and ``NerfTrainer`` take ``cuda`` by default and
+    raise without a GPU; ``device="cpu"`` runs on the CPU."""
+    from touchgs_torch.models import nerf
+    from touchgs_torch.touch.sensor_nets import DenseTactSensor
+
+    cfg = nerf.NerfConfig(num_levels=2, hash_size=2**8, rays_per_batch=64)
+    assert DenseTactSensor(device="cpu").device.type == "cpu"
+    assert nerf.NerfTrainer(card_scene(), cfg,
+                            device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert DenseTactSensor().device.type == "cuda"
+        assert nerf.NerfTrainer(card_scene(), cfg).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            DenseTactSensor()
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            nerf.NerfTrainer(card_scene(), cfg)

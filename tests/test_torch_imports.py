@@ -1,6 +1,6 @@
 """The port's import rule: no module of ``touchgs_torch/``, nor
-``chip_smoke.py``, imports JAX, orbax or the JAX package, not even lazily
-inside a function, and PIL only in ``data/png.py``'s lazy path for files
+``chip_smoke.py``, imports JAX, flax, optax, orbax or the JAX package, not
+even lazily inside a function, and PIL only in ``data/png.py``'s lazy path for files
 that are not plain PNGs.  Each file is parsed with ``ast``; only the tests
 import both packages."""
 import ast
@@ -11,7 +11,7 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "orbax", "touchgs_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "touchgs_tpu")
 FILES = sorted(ROOT.glob("touchgs_torch/**/*.py")) + [ROOT / "chip_smoke.py"]
 
 
@@ -165,6 +165,42 @@ def test_vision_capture_slice_imports_without_jax_or_pil():
         "    cli.main(['pipeline', '--help'])\n"
         "except SystemExit as e:\n"
         "    assert e.code == 0\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {blocked!r}"
+        " and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120, capture_output=True)
+
+
+SENSOR_NERF_SLICE = (
+    "touch/losses.py", "touch/densetact_nets.py", "touch/swin_force.py",
+    "touch/sensor_nets.py", "touch/sensor_train.py", "touch/sensor_loop.py",
+    "models/nerf.py")
+
+
+def test_sensor_nerf_slice_files_found():
+    for rel in SENSOR_NERF_SLICE:
+        assert ROOT / "touchgs_torch" / rel in FILES, rel
+
+
+def test_sensor_nerf_slice_imports_without_jax_or_pil():
+    """The sensor stack and the NeRF import, and a sensor loop runs on the
+    CPU, in a process where ``jax``, ``flax``, ``optax``, ``orbax``,
+    ``touchgs_tpu`` and ``PIL`` cannot be imported."""
+    blocked = FORBIDDEN + ("PIL",)
+    mods = ["touchgs_torch." + rel[:-3].replace("/", ".")
+            for rel in SENSOR_NERF_SLICE]
+    code = (
+        "import importlib, sys\n"
+        f"for name in list(sys.modules) + list({blocked!r}):\n"
+        f"    if name.split('.')[0] in {blocked!r}:\n"
+        "        sys.modules[name] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from touchgs_torch.touch import sensor_loop as sl\n"
+        "sensor = sl.DenseTactSensor(device='cpu')\n"
+        "assert sl.SensorLoop(sensor, rate_hz=1e3).run(\n"
+        "    sl.SyntheticSource(size=32, n_frames=1)) == 1\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {blocked!r}"
         " and sys.modules[m] is not None]\n"
         "assert not bad, bad\n")

@@ -13,7 +13,10 @@ Subpackages
 - ``touchgs_torch.data``    cameras and the in-memory ``Scene``
 - ``touchgs_torch.ops``     projection, SH, binning, compositing kernels,
                             the scan path, SSIM
-- ``touchgs_torch.models``  Gaussian parameters, splat model, densification
+- ``touchgs_torch.models``  Gaussian parameters, splat model, densification,
+                            the depth-supervised NeRF
+- ``touchgs_torch.touch``   the touch pipeline and the DenseTact sensor stack
+- ``touchgs_torch.vision``  the monocular-depth nets
 - ``touchgs_torch.train``   fused Adam and the training loop
 - ``touchgs_torch.eval``    PSNR / SSIM / LPIPS, scene evaluation, camera paths
 - ``touchgs_torch.tools``   the anatomy tool, the stage profiler, the scale demo

@@ -1,1 +1,2 @@
-"""Gaussian parameters, the splat model and densification."""
+"""Gaussian parameters, the splat model, densification and the
+depth-supervised NeRF."""

@@ -1,5 +1,5 @@
-"""Random-weight checkpoints of the monocular-depth nets, written as
-``tools/port_weights.py`` writes a real one.
+"""Random-weight checkpoints of the monocular-depth nets and the DenseTact
+sensor nets, written as ``tools/port_weights.py`` writes a real one.
 
 No pretrained checkpoint is in the repository, so the nets run at their
 published widths on weights drawn from a seed: ``ported_shapes`` lists
@@ -9,11 +9,15 @@ linear (in, out)), and ``random_checkpoint`` draws them so that the
 activations stay of order one through the depth of the net: weights
 of variance 1/fan_in, biases and embeddings of standard deviation 0.02
 (uniform draws, a tenth of the normal draws' time at 340M parameters),
-LayerNorms (1, 0), LayerScales 0.1.  The real loader (``vision.dpt.PortedNet.from_npz``,
-``VisualPipeline``) reads the file, so a real checkpoint's npz takes its
-place with no change.
+LayerNorms (1, 0), LayerScales 0.1, SwinV2's logit scales log 10 (its
+own init).  DenseDepth and DenseNet_Force come from
+``touch.densetact_nets.init_*_params``, whose numpy draws equal the JAX
+package's bit for bit.  The real loader (``vision.dpt.PortedNet.from_npz``,
+``VisualPipeline``, ``touch.sensor_nets.DenseTactSensor``) reads the
+file, so a real checkpoint's npz takes its place with no change.
 
     python -m touchgs_torch.tools.random_checkpoint zoe_n OUT.npz [--seed S]
+    python -m touchgs_torch.tools.random_checkpoint densetact_depth OUT.npz
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ import argparse
 
 import numpy as np
 
+from touchgs_torch.touch import densetact_nets as dt
+from touchgs_torch.touch.swin_force import STFORCE_SWIN
 from touchgs_torch.vision.depth_anything import DEPTH_ANYTHING_SMALL
 from touchgs_torch.vision.dpt import DPT_LARGE
 from touchgs_torch.vision.zoedepth import ZOEDEPTH_NK, ZOEDEPTH_NYU
@@ -29,6 +35,13 @@ from touchgs_torch.vision.zoedepth import ZOEDEPTH_NK, ZOEDEPTH_NYU
 ARCHS = {"dpt": ("dpt", DPT_LARGE), "zoe_n": ("zoedepth", ZOEDEPTH_NYU),
          "zoe_nk": ("zoedepth", ZOEDEPTH_NK),
          "depth_anything": ("depth_anything", DEPTH_ANYTHING_SMALL)}
+# the DenseTact sensor nets at theirs (640² input, cam_ros.py:113,125)
+SENSOR_ARCHS = {"densetact_depth": ("densetact_depth", dt.DENSENET161),
+                "densetact_force": ("densetact_force", dt.DENSENET161),
+                "stforce": ("stforce", STFORCE_SWIN)}
+# the DenseTact nets' own draws (``np.random.default_rng(seed)``)
+DENSETACT_INIT = {"densetact_depth": dt.init_dense_depth_params,
+                  "densetact_force": dt.init_densenet_force_params}
 # ZoeD_NK's patch transformer (HF hardcodes its classifier's 128 inputs)
 PATCH_HIDDEN, PATCH_INTERMEDIATE, PATCH_LAYERS = 128, 1024, 4
 
@@ -198,15 +211,106 @@ def _depth_anything(a) -> _Shapes:
     return s
 
 
+def _densenet(cfg, s: _Shapes, prefix="encoder.densenet") -> int:
+    """The DenseNet trunk and its classifier; returns its width."""
+    f = f"{prefix}.features"
+
+    def bn(name, c):
+        s.norm(name, c)
+        s[f"{name}.running_mean"] = s[f"{name}.running_var"] = (c,)
+
+    s.conv(f"{f}.conv0", 7, 3, cfg["init_features"], bias=False)
+    bn(f"{f}.norm0", cfg["init_features"])
+    c, inner = cfg["init_features"], cfg["bn_size"] * cfg["growth"]
+    for bi, n_layers in enumerate(cfg["blocks"], start=1):
+        for li in range(1, n_layers + 1):
+            lay = f"{f}.denseblock{bi}.denselayer{li}"
+            bn(f"{lay}.norm1", c)
+            s.conv(f"{lay}.conv1", 1, c, inner, bias=False)
+            bn(f"{lay}.norm2", inner)
+            s.conv(f"{lay}.conv2", 3, inner, cfg["growth"], bias=False)
+            c += cfg["growth"]
+        if bi < len(cfg["blocks"]):
+            bn(f"{f}.transition{bi}.norm", c)
+            s.conv(f"{f}.transition{bi}.conv", 1, c, c // 2, bias=False)
+            c //= 2
+    bn(f"{f}.norm5", c)
+    s.lin(f"{prefix}.classifier", c, 1000)
+    return c
+
+
+def _densetact_depth(cfg) -> _Shapes:
+    s = _Shapes()
+    num_features = _densenet(cfg, s)
+    features = cin = num_features // 2
+    for i, (div, skip) in enumerate(zip((1, 2, 4, 8),
+                                        dt.decoder_skip_channels(cfg)), 1):
+        cout = features // (div * 2)
+        s.conv(f"decoder.upsample{i}.convA", 3, features // div + skip, cout)
+        s.conv(f"decoder.upsample{i}.convB", 3, cout, cout)
+        cin = cout
+    s.conv("decoder.conv2", 1, num_features, features)
+    s.conv("decoder.conv3", 3, cin, 1)
+    s.conv("decoder.dispheader.conv1", 3, 1, 1)
+    return s
+
+
+def _densetact_force(cfg) -> _Shapes:
+    s = _Shapes()
+    _densenet(cfg, s)
+    s.lin("force_head.fc1", 1000, 500)
+    s.lin("force_head.fc2", 500, 6)
+    return s
+
+
+def _stforce(a) -> _Shapes:
+    """STForce: the SwinV2 backbone's tensors that its forward reads (a
+    real checkpoint also holds its buffers: coords tables, position
+    indices, masks) and the force head."""
+    s, b = _Shapes(), "backbone"
+    s.conv(f"{b}.patch_embed.proj", a.patch_size, 3, a.embed_dim)
+    s.norm(f"{b}.patch_embed.norm", a.embed_dim)
+    d = a.embed_dim
+    for li, (depth, heads) in enumerate(zip(a.depths, a.num_heads)):
+        for bi in range(depth):
+            pre = f"{b}.layers.{li}.blocks.{bi}"
+            s[f"{pre}.attn.logit_scale"] = (heads, 1, 1)
+            s[f"{pre}.attn.q_bias"] = s[f"{pre}.attn.v_bias"] = (d,)
+            s.lin(f"{pre}.attn.qkv", d, 3 * d, bias=False)
+            s.lin(f"{pre}.attn.proj", d, d)
+            s.lin(f"{pre}.attn.cpb_mlp.0", 2, 512)
+            s.lin(f"{pre}.attn.cpb_mlp.2", 512, heads, bias=False)
+            s.norm(f"{pre}.norm1", d)
+            s.lin(f"{pre}.mlp.fc1", d, int(d * a.mlp_ratio))
+            s.lin(f"{pre}.mlp.fc2", int(d * a.mlp_ratio), d)
+            s.norm(f"{pre}.norm2", d)
+        if li < len(a.depths) - 1:
+            s.lin(f"{b}.layers.{li}.downsample.reduction", 4 * d, 2 * d,
+                  bias=False)
+            s.norm(f"{b}.layers.{li}.downsample.norm", 2 * d)
+            d *= 2
+    s.norm(f"{b}.norm", d)
+    s.lin(f"{b}.head", d, a.num_classes)
+    s.lin("force_head.fc1", a.num_classes, 500)
+    s.lin("force_head.fc2", 500, 6)
+    return s
+
+
 def ported_shapes(kind: str, arch) -> dict:
     """{torch state_dict name: shape in the ported layout} of a checkpoint
-    of ``kind`` ("dpt", "zoedepth" or "depth_anything") at ``arch``."""
+    of ``kind`` ("dpt", "zoedepth", "depth_anything", "densetact_depth",
+    "densetact_force" or "stforce") at ``arch``."""
     return dict({"dpt": _dpt, "zoedepth": _zoedepth,
-                 "depth_anything": _depth_anything}[kind](arch))
+                 "depth_anything": _depth_anything,
+                 "densetact_depth": _densetact_depth,
+                 "densetact_force": _densetact_force,
+                 "stforce": _stforce}[kind](arch))
 
 
 def random_checkpoint(kind: str, arch, seed: int = 0) -> dict:
     """{name: float32 array} drawn from ``np.random.default_rng(seed)``."""
+    if kind in DENSETACT_INIT:
+        return DENSETACT_INIT[kind](seed, arch)
     rng = np.random.default_rng(seed)
 
     def uniform(shape, std):
@@ -232,6 +336,8 @@ def random_checkpoint(kind: str, arch, seed: int = 0) -> dict:
             a = np.zeros(shape, np.float32)
         elif leaf.startswith("lambda"):
             a = np.full(shape, 0.1, np.float32)
+        elif leaf == "logit_scale":
+            a = np.full(shape, np.log(10.0), np.float32)
         else:
             a = uniform(shape, 0.02)
         out[name] = a
@@ -240,11 +346,12 @@ def random_checkpoint(kind: str, arch, seed: int = 0) -> dict:
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("net", choices=sorted(ARCHS))
+    nets = {**ARCHS, **SENSOR_ARCHS}
+    p.add_argument("net", choices=sorted(nets))
     p.add_argument("out")
     p.add_argument("--seed", type=int, default=0)
     args = p.parse_args(argv)
-    kind, arch = ARCHS[args.net]
+    kind, arch = nets[args.net]
     np.savez(args.out, **random_checkpoint(kind, arch, args.seed))
 
 

@@ -1,6 +1,7 @@
 """The touch pipeline (port of ``touchgs_tpu/touch``): vision-depth
 uncertainty, two-stage alignment and Bayesian fusion, touch seeding, the
-GPIS and the sensor calibration."""
+GPIS and the sensor calibration; and the DenseTact sensor stack (its
+nets, losses, train steps and the 30 Hz sensor loop)."""
 from touchgs_torch.touch.uncertainty import compute_uncertainty_map_with_edges  # noqa: F401
 from touchgs_torch.touch.fusion import (  # noqa: F401
     align_vision_depth,

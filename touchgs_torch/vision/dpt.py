@@ -142,11 +142,18 @@ def conv(x: torch.Tensor, p: dict, name: str, stride: int = 1,
     b = p.get(f"{name}.bias")
     k = w.shape[2]
     if padding == "SAME" and stride == 1 and k > 1 and k % 2 == 1:
-        n, c, h, wd = x.shape
-        cols = F.unfold(x, k, padding=k // 2)         # (n, c·k·k, h·w)
-        y = (w.reshape(w.shape[0], -1) @ cols).reshape(n, -1, h, wd)
-        return y if b is None else y + b[:, None, None]
+        return unfold_conv(x, w, b)
     return conv2d_xla(x, w, b, stride, padding)
+
+
+def unfold_conv(x: torch.Tensor, w: torch.Tensor, b) -> torch.Tensor:
+    """A stride-1 k×k conv (odd k) with SAME padding as unfold + one
+    matmul."""
+    n, c, h, wd = x.shape
+    k = w.shape[2]
+    cols = F.unfold(x, k, padding=k // 2)             # (n, c·k·k, h·w)
+    y = (w.reshape(w.shape[0], -1) @ cols).reshape(n, -1, h, wd)
+    return y if b is None else y + b[:, None, None]
 
 
 def conv2d_xla(x: torch.Tensor, w: torch.Tensor, b, stride: int = 1,
