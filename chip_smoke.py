@@ -108,6 +108,30 @@ Phases (any failure raises, and the script exits nonzero with no result):
    with σ decay, it/s, ``render_view`` of a held-out view with its PSNR and
    time, and one step on the card against the CPU with injected uniforms
    (``launches_nerf`` in the kernels line, from the scene's GT renders).
+4h. The live viewer, multi-scene and sharded training
+   (``phase_parallel``), each path driven with the launch counters set to
+   0 just before and read just after. (a) ``Trainer.run`` on the flagship,
+   20 steps without and 20 with a ``ViewerServer`` on port 0 whose page is
+   played by a thread (``/state`` and a 640x480 frame every 250 ms, the
+   modes in turn): K1 with rows and K2 count the steps and the frames, K3
+   the steps only; after training the rgb, depth and acc frames, decoded,
+   equal the trainer's own render at the same ``orbit_c2w`` camera
+   quantised as the server does, byte for byte; K1 with rows and K2 on the
+   frame's inputs against their plain versions; ms a frame, the round
+   trip, the step median with and without the viewer (``launches_viewer``:
+   the frames after training). (b) 4 flagship scenes drawn from seeds in
+   one process: step 1 against four single-scene steps (loss rtol 1e-4,
+   parameters atol 1e-5, an entry moved by Adam on float32 noise held as a
+   share, ROADMAP C32), K1-K3 on the batch's 2500-tile grid against their
+   plain versions, then 25 steps of ``run_multiscene`` with two refines
+   and an opacity reset (``launches_multiscene``: one of each kernel a
+   step) timed against four single-scene ``Trainer`` runs of the same
+   schedule, and the peak memory. (c) One flagship step with the tile
+   grid in 4 slices in one process and one in a NCCL world of one, each
+   against the unsharded step within the same tolerances
+   (``launches_sharded``); K1's lists of each slice (``tile0``) equal the
+   global lists' slice, and K1-K3 on the last slice against plain; the
+   three steps timed in turns; ``scaling_bench`` at a world of one.
 5. The profiling path: ``python -m touchgs_torch.tools.exp_kernel_anatomy
    --bf16``'s work (K4, the flagship's tiles at k_chunk 128, K2 with and
    without its exit, the four K5 ablations, the two K6 probe legs), with
@@ -128,8 +152,10 @@ Phases (any failure raises, and the script exits nonzero with no result):
    training path for its kernels, from the anatomy path for the others;
    the training path's kernels also carry ``launches_hard_scene``,
    ``launches_cli``, ``launches_pipeline``, ``launches_sensor``,
-   ``launches_nerf`` and, under ``hard_scene``, their errors, times and bounds at both of its
-   k_tiles),
+   ``launches_nerf``, ``launches_viewer``, ``launches_multiscene``,
+   ``launches_sharded``, ``parallel_max_abs_err`` (phase 4h's errors
+   against plain) and, under ``hard_scene``, their errors, times and
+   bounds at both of its k_tiles),
    then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -141,7 +167,11 @@ runs phase 4e alone, and
 
     python3 chip_smoke.py --sensor
 
-phases 4f and 4g alone.
+phases 4f and 4g alone, and
+
+    python3 chip_smoke.py --parallel
+
+phase 4h alone.
 
     python3 chip_smoke.py --ab OLD_CSRC
 
@@ -2689,6 +2719,560 @@ def phase_ab_anatomy(dev, old, rounds: int = 20) -> None:
         ab_time(name, fo, fn, rounds)
 
 
+# phase 4h: the live viewer, multi-scene training and sharded training
+PAR_WARMUP, PAR_STEPS = 5, 20      # train steps without, then with a viewer
+VIEW_W, VIEW_H = 640, 480          # the page's frame size
+VIEW_PERIOD_S = 0.25               # the page's poll period (/state, a frame)
+VIEW_FRAMES = 10                   # frames timed after training
+MS_SCENES, MS_STEPS, MS_VIEWS = 4, 25, 4
+# a short schedule: refines at steps 10 (densifying) and 20 (culling), an
+# opacity reset at step 15
+MS_DENSIFY = dict(warmup_steps=5, refine_every=10, reset_opacity_every=15)
+SHARDS, SHARD_STEPS = 4, 10        # in-process tile slices; timed steps
+
+
+def flagship_cfg(**kw):
+    from touchgs_torch.config import ModelConfig, RasterizeConfig, TrainConfig
+
+    return TrainConfig(
+        model=ModelConfig(max_gaussians=CAPACITY, sh_degree=3,
+                          rasterize=RasterizeConfig(use_pallas=True)),
+        view_cache_bytes=1 << 30, log_every=1, **kw)
+
+
+def same_step(name: str, loss, ref_loss, params, ref_params, optim) -> float:
+    """Check one step against another at the JAX package's 1-vs-N
+    tolerances: loss rtol 1e-4, parameters atol 1e-5 on the live slots.
+    An entry whose gradient is float32 noise about 0 moves by a whole Adam
+    step of its sign (ROADMAP.md C32), so those are held as a share: at
+    most 0.1% of a group's entries, none more than two steps apart.
+    Returns the largest parameter difference."""
+    from touchgs_torch.train.optim import PARAM_GROUPS
+
+    lrs = {"means": optim.means_lr_init, "quats": optim.quats_lr,
+           "log_scales": optim.scales_lr,
+           "logit_opacities": optim.opacities_lr,
+           "sh_dc": optim.features_dc_lr, "sh_rest": optim.features_rest_lr}
+    loss, ref_loss = float(loss), float(ref_loss)
+    check(abs(loss - ref_loss) <= 1e-4 * abs(ref_loss),
+          f"{name}: loss {loss} against {ref_loss}")
+    alive = ref_params.alive
+    check(torch.equal(params.alive, alive), f"{name}: alive masks differ")
+    worst, apart = 0.0, {}
+    for g in PARAM_GROUPS:
+        d = (getattr(params, g)[alive] - getattr(ref_params, g)[alive]).abs()
+        if d.numel() == 0:
+            continue
+        share = float((d > 1e-5).float().mean())
+        check(share <= 1e-3 and float(d.max()) <= 2 * lrs[g] + 1e-5,
+              f"{name}: {g} {share:.4%} of the entries more than 1e-5 "
+              f"apart, at most {float(d.max()):.3e}")
+        worst = max(worst, float(d.max()))
+        apart[g] = share
+    print(f"{name}: loss {loss:.7f} (reference {ref_loss:.7f}), parameters "
+          f"at most {worst:.3e} apart; share more than 1e-5 apart "
+          + ", ".join(f"{g} {v:.4%}" for g, v in apart.items()))
+    return worst
+
+
+def hold_kernels(name: str, attrs, sorted_gauss, starts, counts, tile_ids,
+                 geom, tile0: int = 0, backward: bool = True) -> float:
+    """K1 with rows, K2 and (``backward``) K3 against their plain versions
+    on one path's inputs, with phase 2's checks; returns the largest
+    error."""
+    from touchgs_torch.ops import rasterize_cuda as rc
+    from touchgs_torch.ops import rasterize_plain as plain
+
+    th, tw, k_tile, k_chunk, n_tx, rcfg = geom
+    n = counts.shape[0]
+    capped = torch.clamp(counts, max=k_tile).contiguous()
+    args = (sorted_gauss, starts.contiguous(), capped, n, k_tile,
+            attrs.shape[0] - plain.DEAD_SPREAD, tile0)
+    gidx, rows = rc.slot_rows(attrs, *args)
+    gidx_p, rows_p = plain.slot_rows_plain(attrs, *args)
+    check(torch.equal(gidx, gidx_p) and torch.equal(rows, rows_p),
+          f"{name}: K1 with rows differs from plain")
+    nc = ((capped + k_chunk - 1) // k_chunk).to(torch.int32)
+    fwd = rc.forward_tiles(nc, tile_ids, rows, *geom)
+    fwd_p = plain.forward_tiles_plain(nc, tile_ids, rows, *geom)
+    sel = torch.tensor([0, 1, 2, 4, 5], device=fwd.device)
+    err = float((fwd[:, sel] - fwd_p[:, sel]).abs().max())
+    err_d = float((fwd[:, 3] - fwd_p[:, 3]).abs().max())
+    check(torch.equal(fwd[:, plain.ROW_DONE], fwd_p[:, plain.ROW_DONE])
+          and torch.equal(fwd[:, plain.ROW_T], fwd_p[:, plain.ROW_T])
+          and err <= 3e-5 and err_d <= 3e-4,
+          f"{name}: K2 outside tolerance ({err:.3e}, depth {err_d:.3e})")
+    msg = f"{name}: K1 rows equal, K2 {err:.3e} (depth {err_d:.3e})"
+    worst = max(err, err_d)
+    if backward:
+        done = fwd[:, plain.ROW_DONE, 0].to(torch.int32).contiguous()
+        gen = torch.Generator(device=fwd.device)
+        gen.manual_seed(1)
+        g = torch.randn(fwd.shape, generator=gen, device=fwd.device)
+        d = rc.backward_tiles(done, tile_ids, rows, fwd, g, *geom)
+        d_p = plain.backward_tiles_plain(done, tile_ids, rows, fwd, g, *geom)
+        diff = (d - d_p).abs()
+        check(not bool((diff > 1e-5 + 1e-4 * d_p.abs()).any()),
+              f"{name}: K3 outside tolerance")
+        msg += f", K3 {float(diff.max()):.3e} (bit-exact {torch.equal(d, d_p)})"
+        worst = max(worst, float(diff.max()))
+    torch.cuda.synchronize()
+    print(msg + f" on {n} tiles")
+    return worst
+
+
+def step_times(step, state, batch, n: int) -> list:
+    """ms of each of ``n`` steps, each ending in a host read of its loss."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        state, m = step(state, *batch)
+        float(m["loss"])
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def phase_viewer(card: str, trainer) -> tuple:
+    """(a) ``Trainer.run`` at the flagship with and without a live
+    ``ViewerServer`` polled as its page polls it; frames after training
+    against the trainer's own render; returns the counts of the frames
+    after training and the errors of the kernels on a frame's inputs."""
+    import threading
+    import urllib.request
+
+    from touchgs_torch.data.cameras import Camera
+    from touchgs_torch.data.png import decode_png
+    from touchgs_torch.models.splatfacto import render, shade
+    from touchgs_torch.ops import rasterize_cuda as rc
+    from touchgs_torch.viewer import ViewerServer, orbit_c2w
+    from touchgs_torch.viewer.server import frame_bytes
+
+    dev = trainer.device
+    query = (f"theta=0.4&phi=0.35&radius=3.0&w={VIEW_W}&h={VIEW_H}")
+    trainer.run(PAR_WARMUP)
+    torch.cuda.synchronize()
+    stamps = [time.perf_counter()]
+    trainer.run(PAR_WARMUP + PAR_STEPS,
+                log_fn=lambda m: stamps.append(time.perf_counter()))
+    plain_ms = np.diff(stamps) * 1e3
+
+    served, trips, stop = [], [], threading.Event()
+    with ViewerServer(trainer=trainer, port=0) as v:
+        def page():  # /state and a frame every VIEW_PERIOD_S, as the page
+            modes = ("rgb", "depth", "acc")
+            while not stop.is_set():
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(v.url + "state", timeout=60) as r:
+                    json.loads(r.read())
+                url = f"{v.url}render?{query}&mode={modes[len(served) % 3]}"
+                with urllib.request.urlopen(url, timeout=60) as r:
+                    served.append(r.read())
+                trips.append((time.perf_counter() - t0) * 1e3)
+                stop.wait(max(0.0, VIEW_PERIOD_S - (time.perf_counter() - t0)))
+
+        zero_launches()
+        client = threading.Thread(target=page, daemon=True)
+        client.start()
+        stamps = [time.perf_counter()]
+        trainer.run(PAR_WARMUP + 2 * PAR_STEPS, viewer=v,
+                    log_fn=lambda m: stamps.append(time.perf_counter()))
+        stop.set()
+        client.join(timeout=120)
+        check(not client.is_alive(), "the viewer's client did not stop")
+        torch.cuda.synchronize()
+        during = dict(rc.launches)
+        viewer_ms = np.diff(stamps) * 1e3
+        n_during = len(served)
+        check(n_during >= 1, "no frame was served while training")
+        want = {"slot_lists": 0, "slot_rows": PAR_STEPS + n_during,
+                "composite_fwd": PAR_STEPS + n_during,
+                "composite_bwd": PAR_STEPS}
+        check(during == want, f"launches while training with the viewer "
+              f"{during}, want {want}")
+        with urllib.request.urlopen(v.url + "state", timeout=60) as r:
+            state = json.loads(r.read())
+        check(state["step"] == PAR_WARMUP + 2 * PAR_STEPS - 1
+              and not state["training"], f"/state after training: {state}")
+
+        # after training: the three modes against the trainer's own render
+        zero_launches()
+        pngs = {}
+        for m in ("rgb", "depth", "acc"):
+            with urllib.request.urlopen(f"{v.url}render?{query}&mode={m}",
+                                        timeout=60) as r:
+                pngs[m] = r.read()
+        trips_after = []
+        for _ in range(VIEW_FRAMES):
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(f"{v.url}render?{query}&mode=rgb",
+                                        timeout=60) as r:
+                r.read()
+            trips_after.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        counts = dict(rc.launches)
+        n_frames = 3 + VIEW_FRAMES
+        want = {"slot_lists": 0, "slot_rows": n_frames,
+                "composite_fwd": n_frames, "composite_bwd": 0}
+        check(counts == want, f"viewer launches after training {counts}, "
+              f"want {want}")
+        c2w = orbit_c2w(0.4, 0.35, 3.0)
+        frame_ms = []
+        for _ in range(VIEW_FRAMES):
+            t0 = time.perf_counter()
+            v._render(c2w, VIEW_W, VIEW_H)
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+
+    f = np.float32(0.8 * max(VIEW_W, VIEW_H))
+    cam = Camera(fx=torch.tensor(f, device=dev), fy=torch.tensor(f, device=dev),
+                 cx=torch.tensor(np.float32(VIEW_W / 2), device=dev),
+                 cy=torch.tensor(np.float32(VIEW_H / 2), device=dev),
+                 c2w=torch.as_tensor(c2w, device=dev), width=VIEW_W,
+                 height=VIEW_H)
+    mcfg = trainer.cfg.model
+    with torch.no_grad():
+        out, _ = render(trainer.state.params, cam, mcfg,
+                        active_sh_degree=mcfg.sh_degree)
+    host = {"rgb": out.rgb.cpu().numpy(), "depth": out.depth.cpu().numpy(),
+            "acc": out.acc.cpu().numpy()}
+    for m, png in pngs.items():
+        got = decode_png(png).pixels
+        check(np.array_equal(got, frame_bytes(host, m)),
+              f"viewer {m} frame differs from the trainer's render")
+        check(np.ptp(got) > 0, f"viewer {m} frame is blank")
+    print(f"viewer: rgb, depth and acc frames at {VIEW_W}x{VIEW_H} equal the "
+          f"trainer's render byte for byte; mean rgb "
+          f"{float(host['rgb'].mean()):.4f}")
+
+    with torch.no_grad():
+        proj, colors, opac, _ = shade(trainer.state.params, cam, mcfg,
+                                      mcfg.sh_degree)
+        x = tile_inputs(mcfg.rasterize, proj, colors, opac, VIEW_W, VIEW_H)
+        err = hold_kernels("viewer frame", x["attrs"], x["bins"].sorted_gauss,
+                           x["bins"].tile_starts, x["bins"].tile_counts,
+                           x["tile_ids"], (x["th"], x["tw"], x["k_tile"],
+                                           x["k_chunk"], x["n_tx"],
+                                           x["rcfg"]), backward=False)
+    med, med_v = float(np.median(plain_ms)), float(np.median(viewer_ms))
+    print(f"viewer: frame {float(np.median(frame_ms)):.3f} ms (render and "
+          f"copy to the host, median of {VIEW_FRAMES}), round trip "
+          f"{float(np.median(trips_after)):.3f} ms after training and "
+          f"{float(np.median(trips)):.3f} ms while training "
+          f"({n_during} frames); step median {med:.3f} ms without the "
+          f"viewer, {med_v:.3f} ms with it ({med_v / med:.3f}x), "
+          f"{PAR_STEPS} steps each, on {card}")
+    return counts, err
+
+
+def multiscene_data(s: int, dev) -> tuple:
+    """Scene ``s`` of the multi-scene batch: flagship parameters drawn on
+    the card from seed ``s`` (100k live Gaussians in 131072 slots, SH 3)
+    and MS_VIEWS random 800x800 views, with a Scene of 2048 seeds for the
+    single-scene Trainer (whose state is then replaced)."""
+    from touchgs_torch.data.cameras import Cameras
+    from touchgs_torch.data.scene import Scene
+    from touchgs_torch.models.gaussians import GaussianParams
+    from touchgs_torch.ops.sh import rgb_to_sh_dc
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(100 + s)
+    n, C = N_GAUSSIANS, CAPACITY
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    live = torch.arange(C, device=dev) < n
+    pad = live[:, None].float()
+    quats = torch.randn((C, 4), generator=gen, device=dev)
+    params = GaussianParams(
+        means=(rand(C, 3) * 2 - 1) * pad,
+        quats=quats / quats.norm(dim=-1, keepdim=True) * pad,
+        log_scales=torch.log(0.006 + 0.012 * rand(C, 3)) * pad,
+        logit_opacities=torch.full((C,), float(np.log(0.1 / 0.9)),
+                                   device=dev) * live,
+        sh_dc=rgb_to_sh_dc(rand(C, 3)) * pad,
+        sh_rest=torch.zeros((C, 15, 3), device=dev), alive=live)
+    rng = np.random.default_rng(200 + s)
+    c2w = np.stack([look_at_c2w((2.5 * np.sin(a), 0.4 + 0.1 * s,
+                                 2.5 * np.cos(a)))
+                    for a in np.linspace(0, np.pi / 2, MS_VIEWS) + 0.3 * s])
+    f = np.full(MS_VIEWS, 0.9 * WIDTH, np.float32)
+    scene = Scene(
+        cameras=Cameras(fx=f, fy=f.copy(),
+                        cx=np.full(MS_VIEWS, WIDTH / 2, np.float32),
+                        cy=np.full(MS_VIEWS, HEIGHT / 2, np.float32),
+                        c2w=c2w, width=WIDTH, height=HEIGHT),
+        images=rng.uniform(0, 1, (MS_VIEWS, HEIGHT, WIDTH, 3)
+                           ).astype(np.float32),
+        depths=rng.uniform(1, 3, (MS_VIEWS, HEIGHT, WIDTH)).astype(np.float32),
+        uncertainties=rng.uniform(0, 1, (MS_VIEWS, HEIGHT, WIDTH)
+                                  ).astype(np.float32),
+        i_train=np.arange(MS_VIEWS), i_eval=np.array([], int),
+        seed_points=rng.uniform(-1, 1, (2048, 3)).astype(np.float32),
+        seed_colors=rng.uniform(0, 1, (2048, 3)).astype(np.float32),
+        scale_factor=1.0, transform=np.eye(4)[:3], name=f"scene{s}")
+    return params, scene
+
+
+def clone_state(state):
+    import copy
+
+    return copy.deepcopy(state)
+
+
+def phase_multiscene(card: str, dev) -> tuple:
+    """(b) S = 4 flagship scenes in one process: step 1 against four
+    single-scene steps, the kernels on the batch's grid against their plain
+    versions, then 25 steps of ``run_multiscene`` with refines and an
+    opacity reset, timed against four single-scene ``Trainer`` runs of the
+    same schedule; returns its launch counts and the kernels' errors."""
+    from touchgs_torch.config import DensifyConfig
+    from touchgs_torch.models.densify import DensifyState
+    from touchgs_torch.models.splatfacto import shade
+    from touchgs_torch.ops import rasterize_cuda as rc
+    from touchgs_torch.parallel import multiscene as ms
+    from touchgs_torch.train.optim import PARAM_GROUPS, FusedAdam
+    from touchgs_torch.train.trainer import (TrainState, Trainer,
+                                             make_train_step)
+
+    S = MS_SCENES
+    cfg = flagship_cfg(densify=DensifyConfig(**MS_DENSIFY))
+    data = [multiscene_data(s, dev) for s in range(S)]
+    opt = FusedAdam(cfg.optim)
+
+    def single_state(p):
+        p = clone_state(p)
+        return TrainState(params=p, opt_state=opt.init(
+            {g: getattr(p, g) for g in PARAM_GROUPS}),
+            densify=DensifyState.zeros(CAPACITY, dev), step=0)
+
+    # every view on the card once
+    views = [[torch.as_tensor(getattr(sc, k), device=dev)
+              for k in ("images", "depths", "uncertainties")]
+             for _, sc in data]
+    cams = [[sc.cameras.at(i, dev) for i in range(MS_VIEWS)]
+            for _, sc in data]
+
+    def batch(view_of):  # view_of[s]: the view of scene s
+        return (ms.stack_cameras([cams[s][v] for s, v in enumerate(view_of)]),
+                *(torch.stack([views[s][k][v] for s, v in enumerate(view_of)])
+                  for k in range(3)))
+
+    # step 1 against four single-scene steps
+    state = ms.make_multiscene_state([clone_state(p) for p, _ in data], cfg,
+                                     opt)
+    step = ms.make_multiscene_train_step(cfg, opt)
+    state, m = step(state, *batch([0] * S), 0)
+    single = make_train_step(cfg, opt)
+    for s in range(S):
+        st, sm = single(single_state(data[s][0]), cams[s][0],
+                        *(views[s][k][0] for k in range(3)), 0)
+        same_step(f"multi-scene step 1, scene {s}", m["loss_per_scene"][s],
+                  sm["loss"], ms.scene_params(state.params, s), st.params,
+                  cfg.optim)
+    del st
+
+    # the kernels on the batch's grid against their plain versions
+    with torch.no_grad():
+        shaded = [shade(ms.scene_params(state.params, s),
+                           ms.camera_at(batch([0] * S)[0], s), cfg.model, 3)
+                  for s in range(S)]
+        projs, colors, opac, _ = zip(*shaded)
+        x = rc.pack_scenes(projs, colors, opac, WIDTH, HEIGHT,
+                           cfg.model.rasterize, k_chunk=cfg.model.rasterize.
+                           k_chunk)
+        err = hold_kernels(f"multi-scene grid ({S} scenes)", x["attrs"],
+                           x["sorted_gauss"], x["tile_starts"],
+                           x["tile_counts"], x["tile_ids"], x["geom"])
+    del shaded, projs, colors, opac, x
+
+    # 25 steps of the schedule, timed
+    events = {"refine": 0, "reset_opacity": 0}
+    refine_fn = ms.make_multiscene_refine_step(cfg)
+    reset_fn = ms.make_multiscene_reset_opacity_step(cfg)
+
+    def refine(*a, **k):
+        events["refine"] += 1
+        return refine_fn(*a, **k)
+
+    def reset(*a, **k):
+        events["reset_opacity"] += 1
+        return reset_fn(*a, **k)
+
+    state = ms.make_multiscene_state([clone_state(p) for p, _ in data], cfg,
+                                     opt)
+    alive0 = state.params.alive.sum(dim=-1).tolist()
+    rng_views = np.random.default_rng(5)
+    stamps = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    stamps.append(time.perf_counter())
+    state, m = ms.run_multiscene(
+        state, cfg, step,
+        lambda i, rng: (*batch(rng_views.integers(0, MS_VIEWS, S)),
+                        min(i // cfg.sh_degree_interval, 3)),
+        MS_STEPS, refine_fn=refine, reset_fn=reset, n_train_views=MS_VIEWS,
+        log_fn=lambda m: stamps.append(time.perf_counter()))
+    torch.cuda.synchronize()
+    counts = dict(rc.launches)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms_ms = np.diff(stamps) * 1e3
+    alive1 = state.params.alive.sum(dim=-1).tolist()
+    want = {"slot_lists": 0, "slot_rows": MS_STEPS, "composite_fwd": MS_STEPS,
+            "composite_bwd": MS_STEPS}
+    check(counts == want, f"multi-scene launches {counts}, want {want} "
+          f"(one of each kernel a step for all {S} scenes)")
+    check(events["refine"] >= 1 and events["reset_opacity"] >= 1,
+          f"multi-scene schedule ran {events}")
+    losses = m["loss_per_scene"].tolist()
+    check(all(np.isfinite(losses)), f"multi-scene losses {losses}")
+    print(f"multi-scene: {S} scenes, {MS_STEPS} steps, {events}; alive "
+          f"{alive0} -> {alive1}; losses {[round(v, 5) for v in losses]}")
+    del state, m
+
+    # four single-scene Trainer runs of the same schedule
+    single_ms = []
+    for s, (p, scene) in enumerate(data):
+        tr = Trainer(scene, cfg)
+        tr.state = single_state(p)
+        tr.rng = np.random.default_rng(5 + s)
+        st = [time.perf_counter()]
+        tr.run(MS_STEPS, log_fn=lambda m: st.append(time.perf_counter()))
+        single_ms.append(float(np.median(np.diff(st) * 1e3)))
+        del tr
+    med = float(np.median(ms_ms))
+    single = float(np.mean(single_ms))
+    print(f"multi-scene: step median {med:.3f} ms for {S} scenes "
+          f"({1e3 / med:.2f} it/s, {S * 1e3 / med:.2f} scene-steps/s); "
+          f"single-scene Trainer runs {[round(v, 3) for v in single_ms]} ms "
+          f"({1e3 / single:.2f} it/s): {single * S / med:.3f}x; one launch "
+          f"each of K1, K2, K3 a step; peak memory {peak:.2f} GiB; on {card}")
+    return counts, err
+
+
+def phase_sharded(card: str, dev, batch) -> tuple:
+    """(c) the flagship step with its tile grid in SHARDS slices in one
+    process, and the sharded step in a NCCL world of one, each against the
+    unsharded step from the same state (``multiscene_data``'s parameters,
+    on the flagship scene's first view ``batch``); K1's slice lists against the global
+    lists; their times in turns; then ``scaling_bench`` at a world of one.
+    Returns the launch counts of the two sharded steps and the kernels'
+    errors on a slice."""
+    import socket
+
+    from touchgs_torch.ops import rasterize_cuda as rc
+    from touchgs_torch.parallel.distributed import init_distributed
+    from touchgs_torch.parallel.mesh import make_mesh
+    from touchgs_torch.parallel.sharded import (gather_state,
+                                                make_sharded_train_step,
+                                                shard_state)
+    from touchgs_torch.models.densify import DensifyState
+    from touchgs_torch.tools import scaling_bench
+    from touchgs_torch.train.optim import PARAM_GROUPS, FusedAdam
+    from touchgs_torch.train.trainer import TrainState, make_train_step
+
+    cfg = flagship_cfg()
+    opt = FusedAdam(cfg.optim)
+    params = multiscene_data(MS_SCENES, dev)[0]
+    state0 = TrainState(params=params, opt_state=opt.init(
+        {g: getattr(params, g) for g in PARAM_GROUPS}),
+        densify=DensifyState.zeros(CAPACITY, dev), step=0)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    check(init_distributed(f"127.0.0.1:{port}", 1, 0) is False
+          and torch.distributed.get_backend() == "nccl",
+          "a NCCL world of one")
+    mesh = make_mesh()
+    check(mesh.size == 1 and mesh.group is not None, f"mesh {mesh}")
+    plain_step = make_train_step(cfg, opt)
+    shard_step = make_train_step(cfg, opt, tile_shards=SHARDS)
+    nccl_step = make_sharded_train_step(cfg, mesh, opt)
+
+    ref, rm = plain_step(clone_state(state0), *batch)
+    zero_launches()
+    st4, m4 = shard_step(clone_state(state0), *batch)
+    stn, mn = nccl_step(shard_state(clone_state(state0), mesh), *batch)
+    torch.cuda.synchronize()
+    counts = dict(rc.launches)
+    want = {"slot_lists": 0, "slot_rows": SHARDS + 1,
+            "composite_fwd": SHARDS + 1, "composite_bwd": SHARDS + 1}
+    check(counts == want, f"sharded launches {counts}, want {want}")
+    same_step(f"tile_shards={SHARDS}", m4["loss"], rm["loss"], st4.params,
+              ref.params, cfg.optim)
+    same_step("NCCL world of one", mn["loss"], rm["loss"],
+              gather_state(stn, mesh).params, ref.params, cfg.optim)
+    del st4, stn, ref
+
+    # K1's lists of each slice against the global lists' slice; the
+    # kernels on the last slice (global tile ids, padding) against plain
+    x = flagship_inputs(dev)
+    n_tiles, k_tile = x["n_tiles"], x["k_tile"]
+    sg, starts, capped = (x["bins"].sorted_gauss, x["bins"].tile_starts,
+                          x["capped"])
+    full = rc.slot_lists(sg, starts, capped, n_tiles, k_tile, x["N"])
+    per = -(-n_tiles // SHARDS)
+    for s in range(SHARDS):
+        sl = slice(s * per, min((s + 1) * per, n_tiles))
+        part = rc.slot_lists(sg, starts[sl].contiguous(),
+                             capped[sl].contiguous(), sl.stop - sl.start,
+                             k_tile, x["N"], tile0=sl.start)
+        check(torch.equal(part, full[sl]),
+              f"K1's lists of slice {s} differ from the global lists")
+    last = (n_tiles - 1) // per           # the last slice with a tile
+    sl = slice(last * per, n_tiles)
+    err = hold_kernels(f"slice {last} of {SHARDS}", x["attrs"], sg,
+                       starts[sl], x["bins"].tile_counts[sl],
+                       x["tile_ids"][sl].contiguous(),
+                       (x["th"], x["tw"], k_tile, x["k_chunk"], x["n_tx"],
+                        x["rcfg"]), tile0=sl.start)
+    print(f"K1: the lists of each of {SHARDS} slices (tile0 = 0, {per}, "
+          f"{2 * per}, {3 * per}) equal the global lists' slice")
+    del x, full
+
+    # times, in turns: unsharded, SHARDS slices, NCCL world of one, ...
+    states = {"unsharded": (plain_step, clone_state(state0)),
+              f"{SHARDS} slices": (shard_step, clone_state(state0)),
+              "NCCL world of one": (nccl_step,
+                                    shard_state(clone_state(state0), mesh))}
+    times = {k: [] for k in states}
+    for _ in range(2):
+        for k, (fn, st) in states.items():
+            times[k] += step_times(fn, st, batch, SHARD_STEPS // 2)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    print("sharded: step median " + ", ".join(
+        f"{k} {v:.3f} ms ({v / med['unsharded']:.3f}x)"
+        for k, v in med.items()) + f", {SHARD_STEPS} steps each in turns, "
+        f"on {card}")
+    del states
+    line = scaling_bench.measure(torch.device("cuda"))
+    print(f"scaling_bench (world of one): {json.dumps(line)}")
+    torch.distributed.destroy_process_group()
+    return counts, err
+
+
+def phase_parallel(card: str, dev=torch.device("cuda")) -> dict:
+    """Phase 4h: the viewer (a), multi-scene (b) and sharded (c) paths,
+    each driven with the launch counters set to 0 just before and read
+    just after; returns their counts and the kernels' errors."""
+    from touchgs_torch.train.trainer import Trainer
+
+    t0 = time.time()
+    trainer = Trainer(make_scene(), flagship_cfg())
+    batch = (*trainer._batch(0), 3)
+    counts_v, err_v = phase_viewer(card, trainer)
+    del trainer
+    torch.cuda.empty_cache()
+    counts_m, err_m = phase_multiscene(card, dev)
+    torch.cuda.empty_cache()
+    counts_s, err_s = phase_sharded(card, dev, batch)
+    torch.cuda.empty_cache()
+    print(f"phase 4h: {time.time() - t0:.1f} s")
+    return {"viewer": counts_v, "multiscene": counts_m, "sharded": counts_s,
+            "errors": {"viewer": err_v, "multiscene": err_m,
+                       "sharded": err_s}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2700,6 +3284,12 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         print(card(), flush=True)
         phase_vision(card())
+        return 0
+    if sys.argv[1:] == ["--parallel"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(card(), flush=True)
+        phase_parallel(card())
         return 0
     if sys.argv[1:] == ["--sensor"]:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -2745,6 +3335,8 @@ def main() -> int:
     sensor_counts = phase_sensor(card_name)
     nerf_counts = phase_nerf(card_name)
     torch.cuda.empty_cache()
+    parallel = phase_parallel(card_name)
+    torch.cuda.empty_cache()
     path_counts, x, probe = phase_anatomy_path()
     kernels += [k4] + phase_anatomy(x, probe, loops)
     # a kernel of the training path counts its launches there, any other
@@ -2759,7 +3351,11 @@ def main() -> int:
             k["launches_pipeline"] = pipeline_counts[k["name"]]
             k["launches_sensor"] = sensor_counts[k["name"]]
             k["launches_nerf"] = nerf_counts[k["name"]]
+            for path in ("viewer", "multiscene", "sharded"):
+                k[f"launches_{path}"] = parallel[path][k["name"]]
             k["hard_scene"] = touch_kernels[k["name"]]
+            # the largest error of K1-K3 against plain on each path's inputs
+            k["parallel_max_abs_err"] = parallel["errors"]
     print(f"chip_smoke: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -4,6 +4,8 @@ two copies of tests/test_cli.py's scene (6 views at 48x64), each CLI with
 test states.  The JAX CLI runs each subcommand once, in module fixtures."""
 import json
 import shutil
+import signal
+import urllib.request
 
 import jax
 import numpy as np
@@ -264,7 +266,7 @@ def test_gpis_render_writes_maps(tmp_path_factory):
     assert len(maps) == N and np.load(maps[0]).shape == (H, W)
 
 
-def test_gpu_is_the_default(scenes, tmp_path):
+def test_gpu_is_the_default(scenes, tmp_path, capsys, monkeypatch):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
     _, troot = scenes
@@ -272,7 +274,23 @@ def test_gpu_is_the_default(scenes, tmp_path):
     with pytest.raises(RuntimeError, match="--cpu"):
         tcli.main(["train", "--preset", "bunny_blender", "--max-steps", "1"]
                   + flags)
-    with pytest.raises(NotImplementedError, match="A19"):
-        tcli.main(["viewer", "--cpu"] + flags)
-    with pytest.raises(NotImplementedError, match="A19"):
-        tcli.main(["train", "--viewer", "--cpu"] + flags)
+    # the viewer serves: ``train --viewer`` on port 0, then ``viewer`` on
+    # the run, its /state read while it waits for the interrupt
+    trainer, _ = tcli.main(["train", "--viewer", "--viewer-port", "0",
+                            "--preset", "bunny_blender", "--is-sim",
+                            "--max-steps", "2", "--cpu"] + flags)
+    assert trainer.state.step == 2
+    assert "live viewer at http://127.0.0.1:" in capsys.readouterr().out
+    seen = []
+
+    def pause():
+        url = capsys.readouterr().out.split("viewer at ")[1].split()[0]
+        with urllib.request.urlopen(url + "state", timeout=10) as r:
+            seen.append(json.loads(r.read()))
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(signal, "pause", pause)
+    tcli.main(["viewer", "--port", "0", "--cpu"] + flags)
+    assert len(seen) == 1 and np.isnan(seen[0].pop("loss"))
+    assert seen[0] == {"step": 2, "num_alive": int(trainer.state.params.num_alive),
+                       "training": False}

@@ -10,6 +10,8 @@ runs where JAX is not installed; on a GPU machine run it with
 Inputs are made with numpy from a seed and go through the port's own
 pipeline; the tolerances are those ``chip_smoke.py`` holds the kernels to.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -493,9 +495,10 @@ def test_rasterize_cuda_gradients_equal_gather_path(cuda_device,
     assert rc.launches["slot_rows"] == before["slot_rows"] + 1
     assert rc.launches["slot_lists"] == before["slot_lists"]
 
-    def gather(attrs, sorted_gauss, starts, counts, n_tiles, k_tile, dead):
+    def gather(attrs, sorted_gauss, starts, counts, n_tiles, k_tile, dead,
+               tile0=0):
         gidx = rc.slot_lists(sorted_gauss, starts, counts, n_tiles, k_tile,
-                             dead)
+                             dead, tile0)
         return attrs[gidx], gidx
 
     monkeypatch.setattr(rc._SlotRows, "apply", gather)
@@ -954,3 +957,163 @@ def test_sensor_and_nerf_run_on_the_card_unless_asked_for_the_cpu():
             DenseTactSensor()
         with pytest.raises(RuntimeError, match="device='cpu'"):
             nerf.NerfTrainer(card_scene(), cfg)
+
+
+def _card_cfg(**kw):
+    return TrainConfig(model=ModelConfig(
+        max_gaussians=512, sh_degree=3,
+        rasterize=RasterizeConfig(use_pallas=True)),
+        sh_degree_interval=1, log_every=1, **kw)
+
+
+@pytest.mark.cuda
+def test_viewer_frame_on_card(cuda_device):
+    """A live viewer on a card trainer: frames render on the server's
+    thread through K1 with rows and K2 (never K3), equal the trainer's own
+    render byte for byte, and the counts add up with the training's."""
+    import urllib.request
+
+    from touchgs_torch.data.png import decode_png
+    from touchgs_torch.models.splatfacto import render
+    from touchgs_torch.viewer import ViewerServer, orbit_c2w
+    from touchgs_torch.viewer.server import frame_bytes
+
+    trainer = Trainer(card_scene(), _card_cfg())
+    with ViewerServer(trainer=trainer, port=0) as v:
+        for k in rc.launches:
+            rc.launches[k] = 0
+        trainer.run(2, viewer=v)
+        url = v.url + "render?theta=0.3&phi=0.2&radius=2.5&w=96&h=64&mode="
+        pngs = {m: urllib.request.urlopen(url + m, timeout=60).read()
+                for m in ("rgb", "depth", "acc")}
+        torch.cuda.synchronize()
+        assert rc.launches == {"slot_lists": 0, "slot_rows": 5,
+                               "composite_fwd": 5, "composite_bwd": 2}
+    c2w = orbit_c2w(0.3, 0.2, 2.5)
+    f = np.float32(0.8 * 96)
+    cam = Camera(*(torch.tensor(np.float32(x), device=cuda_device)
+                   for x in (f, f, 48, 32)),
+                 c2w=torch.as_tensor(c2w, device=cuda_device), width=96,
+                 height=64)
+    with torch.no_grad():
+        out, _ = render(trainer.state.params, cam, trainer.cfg.model,
+                        active_sh_degree=3)
+    host = {k: getattr(out, k).cpu().numpy() for k in ("rgb", "depth", "acc")}
+    for m, png in pngs.items():
+        np.testing.assert_array_equal(decode_png(png).pixels,
+                                      frame_bytes(host, m), err_msg=m)
+
+
+@pytest.mark.cuda
+def test_two_scene_step_on_card(cuda_device):
+    """A 2-scene step (one launch each of K1, K2, K3) against two single
+    scene steps from the same parameters: loss rtol 1e-4, parameters atol
+    1e-5."""
+    import copy
+
+    from touchgs_torch.models.densify import DensifyState
+    from touchgs_torch.parallel import multiscene as ms
+    from touchgs_torch.train.optim import PARAM_GROUPS, FusedAdam
+    from touchgs_torch.train.trainer import TrainState, make_train_step
+
+    cfg = _card_cfg()
+    opt = FusedAdam(cfg.optim)
+    scene = card_scene()
+    trainers = [Trainer(scene, dataclasses.replace(cfg, seed=s))
+                for s in range(2)]
+    params = [t.state.params for t in trainers]
+    batches = [t._batch(s) for s, t in enumerate(trainers)]
+    state = ms.make_multiscene_state(copy.deepcopy(params), cfg, opt)
+    for k in rc.launches:
+        rc.launches[k] = 0
+    state, m = ms.make_multiscene_train_step(cfg, opt)(
+        state, ms.stack_cameras([b[0] for b in batches]),
+        *(torch.stack([b[i] for b in batches]) for i in (1, 2, 3)), 3)
+    torch.cuda.synchronize()
+    assert rc.launches == {"slot_lists": 0, "slot_rows": 1,
+                           "composite_fwd": 1, "composite_bwd": 1}
+    step = make_train_step(cfg, opt)
+    for s in range(2):
+        p = copy.deepcopy(params[s])
+        st, sm = step(TrainState(params=p, opt_state=opt.init(
+            {g: getattr(p, g) for g in PARAM_GROUPS}),
+            densify=DensifyState.zeros(512, cuda_device), step=0),
+            *batches[s], 3)
+        np.testing.assert_allclose(float(m["loss_per_scene"][s]),
+                                   float(sm["loss"]), rtol=1e-4)
+        alive = st.params.alive
+        for g in ("means", "sh_dc", "log_scales", "logit_opacities"):
+            torch.testing.assert_close(
+                getattr(ms.scene_params(state.params, s), g)[alive],
+                getattr(st.params, g)[alive], rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_tile_shards_on_card(cuda_device):
+    """The scene's render with its 6 tiles in 4 slices (K1, K2, K3 launched
+    once a slice, K1 with each slice's tile0) equals the unsharded render,
+    image and gradients."""
+    a = scene_arrays()
+    proj = _project(a, cuda_device)
+    outs = {}
+    for shards in (0, 4):
+        cols = torch.as_tensor(a["colors"], device=cuda_device
+                               ).requires_grad_()
+        op = torch.as_tensor(a["opac"], device=cuda_device).requires_grad_()
+        for k in rc.launches:
+            rc.launches[k] = 0
+        out = rc.rasterize_cuda(proj, cols, op, W, H, RasterizeConfig(),
+                                tile_shards=shards)
+        grads = torch.autograd.grad(out.rgb.square().mean(), (cols, op))
+        torch.cuda.synchronize()
+        n = max(shards, 1)
+        assert rc.launches == {"slot_lists": 0, "slot_rows": n,
+                               "composite_fwd": n, "composite_bwd": n}
+        outs[shards] = (out, grads)
+    (o0, g0), (o4, g4) = outs[0], outs[4]
+    for k in ("rgb", "depth", "acc"):
+        torch.testing.assert_close(getattr(o4, k), getattr(o0, k), rtol=0,
+                                   atol=0)
+    for x, y in zip(g4, g0):
+        torch.testing.assert_close(x, y, rtol=0, atol=1e-9)
+
+
+@pytest.mark.cuda
+def test_nccl_world_of_one(cuda_device):
+    """The sharded step in a NCCL world of one against the unsharded step
+    from the same state: loss rtol 1e-4, parameters atol 1e-5."""
+    import copy
+    import socket
+
+    from touchgs_torch.parallel.distributed import init_distributed
+    from touchgs_torch.parallel.mesh import make_mesh
+    from touchgs_torch.parallel.sharded import (gather_state,
+                                                make_sharded_train_step,
+                                                shard_state)
+    from touchgs_torch.train.trainer import make_train_step
+
+    cfg = _card_cfg()
+    trainer = Trainer(card_scene(), cfg)
+    batch = (*trainer._batch(0), 3)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert init_distributed(f"127.0.0.1:{port}", 1, 0) is False
+    try:
+        mesh = make_mesh()
+        assert mesh.size == 1 and mesh.group is not None
+        assert torch.distributed.get_backend() == "nccl"
+        ref, rm = make_train_step(cfg, trainer.optimizer)(
+            copy.deepcopy(trainer.state), *batch)
+        st, m = make_sharded_train_step(cfg, mesh, trainer.optimizer)(
+            shard_state(copy.deepcopy(trainer.state), mesh), *batch)
+        full = gather_state(st, mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+    np.testing.assert_allclose(float(m["loss"]), float(rm["loss"]),
+                               rtol=1e-4)
+    alive = ref.params.alive
+    for g in ("means", "sh_dc"):
+        torch.testing.assert_close(getattr(full.params, g)[alive],
+                                   getattr(ref.params, g)[alive], rtol=0,
+                                   atol=1e-5)

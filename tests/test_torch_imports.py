@@ -206,3 +206,47 @@ def test_sensor_nerf_slice_imports_without_jax_or_pil():
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120, capture_output=True)
+
+
+VIEWER_PARALLEL_SLICE = (
+    "viewer/__init__.py", "viewer/server.py", "parallel/__init__.py",
+    "parallel/mesh.py", "parallel/distributed.py", "parallel/multiscene.py",
+    "parallel/sharded.py", "tools/train_multiscene_demo.py",
+    "tools/scaling_bench.py")
+
+
+def test_viewer_parallel_slice_files_found():
+    for rel in VIEWER_PARALLEL_SLICE:
+        assert ROOT / "touchgs_torch" / rel in FILES, rel
+
+
+def test_viewer_parallel_slice_imports_without_jax_or_pil():
+    """The viewer, the parallel package and their tools import, and a
+    viewer serves a frame of a CPU trainer, in a process where ``jax``,
+    ``orbax``, ``touchgs_tpu`` and ``PIL`` cannot be imported."""
+    blocked = FORBIDDEN + ("PIL",)
+    mods = ["touchgs_torch." + rel[:-3].replace("/", ".").replace(
+        ".__init__", "") for rel in VIEWER_PARALLEL_SLICE]
+    code = (
+        "import importlib, sys, urllib.request\n"
+        f"for name in list(sys.modules) + list({blocked!r}):\n"
+        f"    if name.split('.')[0] in {blocked!r}:\n"
+        "        sys.modules[name] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import numpy as np\n"
+        "from touchgs_torch.data.png import decode_png\n"
+        "from touchgs_torch.viewer import ViewerServer\n"
+        "def fn(c2w, w, h):\n"
+        "    z = np.zeros((h, w), np.float32)\n"
+        "    return {'rgb': np.ones((h, w, 3), np.float32), 'depth': z,"
+        " 'acc': z}\n"
+        "with ViewerServer(render_fn=fn, port=0) as v:\n"
+        "    png = urllib.request.urlopen(v.url + 'render?w=8&h=4',"
+        " timeout=30).read()\n"
+        "assert (decode_png(png).pixels == 255).all()\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {blocked!r}"
+        " and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120, capture_output=True)

@@ -217,15 +217,46 @@ def test_rasterize_dense_matches(scene):
 
 
 def test_out_of_slice_options_raise(scene):
-    tproj = t_project(torch.zeros((4, 3)), torch.ones((4, 4)),
-                      torch.full((4, 3), 0.01), torch.eye(4),
-                      *(_t(np.float32(v)) for v in (50.0, 50.0, 32.0, 32.0)),
-                      64, 64)
-    cols, op = torch.ones((4, 3)), torch.full((4,), 0.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rc.rasterize_cuda(tproj, cols, op, 64, 64, tile_shards=2)
+    """``tile_shards`` composites the grid in slices, each through its own
+    K1 (with the slice's ``tile0``), K2 and K3: 2 slices of 3 tiles and 4
+    of 2 (two padding tiles) render the same image and gradients as the
+    whole grid, and each slice's lists are the global lists' slice bit for
+    bit.  A k_chunk that does not divide 128 still raises."""
+    bg = _t(np.array([0.1, 0.2, 0.3], np.float32))
+    tproj = t_project(*(_t(scene[k]) for k in ("means", "quats", "scales")),
+                      *(_t(x) for x in (scene["cam"].w2c, scene["cam"].fx,
+                                        scene["cam"].fy, scene["cam"].cx,
+                                        scene["cam"].cy)),
+                      W, H, tcfg.RasterizeConfig(), opacities=_t(scene["opac"]))
+
+    def render(shards):
+        cols, op = _t(scene["colors"], True), _t(scene["opac"], True)
+        out = rc.rasterize_cuda(tproj, cols, op, W, H, tcfg.RasterizeConfig(),
+                                k_tile=K_TILE, background=bg,
+                                tile_shards=shards)
+        loss = torch.mean((out.rgb - 0.25) ** 2) + 0.3 * torch.mean(out.depth)
+        return out, torch.autograd.grad(loss, (cols, op))
+
+    ref, ref_g = render(0)
+    for shards in (2, 4):
+        out, g = render(shards)
+        for name in ("rgb", "depth", "acc", "lossy_tiles"):
+            torch.testing.assert_close(getattr(out, name), getattr(ref, name),
+                                       rtol=0, atol=0, msg=name)
+        for a, b in zip(g, ref_g):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-9)
+
+    s = _scene_tiles(scene)
+    full = rc.slot_lists(_t(s["sorted_gauss"]), _t(s["starts"]),
+                         _t(s["capped"]), N_TILES, K_TILE, 300)
+    for t0, t1 in ((0, 3), (3, 6), (4, 6)):
+        part = rc.slot_lists(_t(s["sorted_gauss"]), _t(s["starts"][t0:t1]),
+                             _t(s["capped"][t0:t1]), t1 - t0, K_TILE, 300,
+                             tile0=t0)
+        torch.testing.assert_close(part, full[t0:t1], rtol=0, atol=0)
+    cols, op = torch.ones((300, 3)), torch.full((300,), 0.5)
     with pytest.raises(ValueError, match="k_chunk"):
-        rc.rasterize_cuda(tproj, cols, op, 64, 64, k_chunk=96)
+        rc.rasterize_cuda(tproj, cols, op, W, H, k_chunk=96)
 
 
 def test_wrappers_reject_mixed_or_unsupported_devices():

@@ -191,7 +191,32 @@ def test_own_binning_matches_dense(scene):
 
 
 def test_spmd_mode_raises(scene):
-    proj = _t_proj(scene["proj"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        rt.rasterize_tiled(proj, _t(scene["colors"]), _t(scene["opac"]), W,
-                           H, tile_shards=2)
+    """The SPMD mode, ``tile_shards > 0``, composites the grid in that many
+    slices (2 of 3 tiles, 4 of 2 with two padding tiles): the image and
+    the five gradients equal those of ``tile_shards=0``, and JAX's own
+    SPMD mode."""
+    def run(shards):
+        diff = {n: _t(getattr(scene["proj"], n), True)
+                for n in ("means2d", "conics", "depths")}
+        cols, op = _t(scene["colors"], True), _t(scene["opac"], True)
+        out = rt.rasterize_tiled(_t_proj(scene["proj"], **diff), cols, op, W,
+                                 H, tcfg.RasterizeConfig(), k_tile=512,
+                                 bins=_t_bins(scene["bins"]),
+                                 tile_shards=shards)
+        loss = _loss(out, _t(scene["target"]), torch)
+        return out, torch.autograd.grad(loss, list(diff.values()) + [cols, op])
+
+    ref, ref_g = run(0)
+    jout = j_tiled(scene["proj"], scene["colors"], scene["opac"], W, H,
+                   jcfg.RasterizeConfig(), bins=scene["bins"], k_tile=512,
+                   tile_shards=2)
+    for shards in (2, 4):
+        out, g = run(shards)
+        for name in ("rgb", "depth", "acc"):
+            torch.testing.assert_close(getattr(out, name), getattr(ref, name),
+                                       rtol=0, atol=0, msg=name)
+            np.testing.assert_allclose(getattr(out, name).detach().numpy(),
+                                       np.asarray(getattr(jout, name)),
+                                       atol=2e-4 if name == "depth" else 2e-5)
+        for a, b in zip(g, ref_g):
+            torch.testing.assert_close(a, b, rtol=0, atol=1e-9)

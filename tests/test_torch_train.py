@@ -272,13 +272,25 @@ def test_render_view_lossless_on_cpu(arrays):
 
 
 def test_out_of_slice_options_raise(arrays):
-    """The live viewer is not ported (ROADMAP.md A19): ``run`` refuses one
-    before it takes a step."""
+    """``run(viewer=...)`` publishes each log point's status to the viewer
+    (here at every step: ``log_every=1``), the last one not training, as
+    the JAX trainer does (``touchgs_tpu/train/trainer.py:389-394``)."""
     tt = ttr.Trainer(_scene(arrays, TCameras, TScene), _cfg(tcfg),
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.run(2, viewer=object())
-    assert tt.state.step == 0
+
+    class Recorder:
+        def __init__(self):
+            self.calls = []
+
+        def update_status(self, step, loss, num_alive, training=True):
+            self.calls.append((step, loss, num_alive, training))
+
+    rec, log = Recorder(), []
+    tt.run(2, log_fn=log.append, viewer=rec)
+    assert tt.state.step == 2
+    assert rec.calls == [(m["step"], m["loss"], m["num_alive"], m["step"] < 1)
+                         for m in log]
+    assert [c[0] for c in rec.calls] == [0, 1]
 
 
 def test_default_device_is_cuda(arrays):

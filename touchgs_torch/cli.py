@@ -24,7 +24,9 @@ move files).  On the GPU ``train``, ``eval``, ``render`` and
 ``export-splat`` render through the tile kernels (``use_pallas=True``),
 on the CPU through the scan path (ROADMAP.md C20); ``pipeline``'s
 monocular-depth stage runs its net (``vision/monodepth.VisualPipeline``)
-there too.  The live viewer is not ported yet (ROADMAP.md A19).
+there too.  ``train --viewer`` serves the live browser viewer while it
+trains, and ``viewer`` serves it on a trained run; on the GPU its frames
+render through K1 and K2.
 """
 from __future__ import annotations
 
@@ -47,11 +49,6 @@ def _device(args) -> torch.device:
         raise RuntimeError("no CUDA device is available; pass --cpu to run "
                            "on the CPU")
     return torch.device("cuda")
-
-
-def _viewer_not_ported():
-    raise NotImplementedError("the live viewer is not ported yet "
-                              "(ROADMAP.md A19)")
 
 
 # ---------------------------------------------------------------- L4 commands
@@ -273,8 +270,6 @@ def cmd_train(args):
                                                 make_run_dir, restore_trainer)
     from touchgs_torch.train.trainer import Trainer
 
-    if getattr(args, "viewer", False):
-        _viewer_not_ported()
     dev = _device(args)
     cfg, split = _build_cfg(args, dev)
     scene = load_scene(args.data, train_split_fraction=split,
@@ -291,7 +286,17 @@ def cmd_train(args):
     run_dir = make_run_dir(args.output_dir, scene.name)
     mgr = CheckpointManager(run_dir, cfg)
     print(f"run dir: {run_dir}")
-    trainer.run(log_fn=lambda m: print(m), ckpt_manager=mgr)
+    viewer = None
+    if getattr(args, "viewer", False):
+        from touchgs_torch.viewer import ViewerServer
+        viewer = ViewerServer(trainer=trainer, port=args.viewer_port).start()
+        print(f"live viewer at {viewer.url}")
+    try:
+        trainer.run(log_fn=lambda m: print(m), ckpt_manager=mgr,
+                    viewer=viewer)
+    finally:
+        if viewer is not None:
+            viewer.stop()
     mgr.close()
     print(f"training complete → {run_dir}")
     return trainer, run_dir
@@ -394,9 +399,25 @@ def cmd_export_splat(args):
 
 
 def cmd_viewer(args):
-    """The live browser viewer (nerfstudio viewer equivalent): not ported
-    yet."""
-    _viewer_not_ported()
+    """Serve the live browser viewer on a trained run (nerfstudio viewer
+    equivalent) until interrupted.  Returns the stopped server."""
+    import signal
+
+    from touchgs_torch.viewer import ViewerServer
+
+    trainer, scene, cfg, run_dir = _load_trained(args)
+    srv = ViewerServer(trainer=trainer, port=args.port).start()
+    st = trainer.state
+    srv.update_status(int(st.step), float("nan"), int(st.params.num_alive),
+                      training=False)
+    print(f"viewer at {srv.url}  (run: {run_dir}; ctrl-c to stop)")
+    try:
+        signal.pause()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        srv.stop()
+    return srv
 
 
 def cmd_pipeline(args):
@@ -511,8 +532,7 @@ def _add_train_flags(p):
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (the default is the GPU)")
     p.add_argument("--viewer", action="store_true",
-                   help="serve the live browser viewer while training "
-                        "(not ported yet)")
+                   help="serve the live browser viewer while training")
     p.add_argument("--viewer-port", type=int, default=7007)
 
 

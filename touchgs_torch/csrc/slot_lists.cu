@@ -7,7 +7,10 @@
 // starts[t] + j for j < counts[t] (counts already capped at k_tile), else
 // the dead row dead + ((j + 131·t) & 511).  The kernel writes that index
 // to gidx and, given the packed (dead + 512, 16) f32 table attrs, the
-// slot's row to rows, so that rows == attrs[gidx] bit for bit.
+// slot's row to rows, so that rows == attrs[gidx] bit for bit.  A launch
+// over a slice of the tile grid (one shard of a sharded render) passes the
+// slice's first tile as tile0: t is then tile0 + the block's tile, so the
+// slice's dead indices equal those of the whole grid's lists.
 //
 // Bound on an H100: bytes.  It reads each tile's live run of sorted_gauss
 // once and one 64-byte row per slot, and writes the (n_tiles, k_tile) int32
@@ -38,8 +41,9 @@ slot_lists_kernel(const int* __restrict__ sorted_gauss,
                   const int* __restrict__ starts,
                   const int* __restrict__ counts,
                   const float4* __restrict__ attrs, int* __restrict__ gidx,
-                  float4* __restrict__ rows, int k_tile, int dead) {
-  const int t = blockIdx.x;
+                  float4* __restrict__ rows, int k_tile, int dead,
+                  int tile0) {
+  const int t = blockIdx.x;  // the tile within this launch's slice
   const int lane = threadIdx.x % kLanes;
   const int j = blockIdx.y * kSlots + threadIdx.x / kLanes;
   const bool in_tile = j < k_tile;
@@ -47,7 +51,7 @@ slot_lists_kernel(const int* __restrict__ sorted_gauss,
   int g = 0;
   if (lane == 0 && in_tile) {
     g = j < counts[t] ? sorted_gauss[starts[t] + j]
-                      : dead + ((j + t * 131) & (kDeadSpread - 1));
+                      : dead + ((j + (tile0 + t) * 131) & (kDeadSpread - 1));
     gidx[slot] = g;
   }
   if constexpr (kLanes > 1) {
@@ -65,17 +69,19 @@ slot_lists_kernel(const int* __restrict__ sorted_gauss,
 extern "C" int slot_lists_launch(const int* sorted_gauss, const int* starts,
                                  const int* counts, const float* attrs,
                                  int* gidx, float* rows, int n_tiles,
-                                 int k_tile, int dead, void* stream) {
+                                 int k_tile, int dead, int tile0,
+                                 void* stream) {
   if (n_tiles > 0 && k_tile > 0) {
     const dim3 grid(n_tiles, (k_tile + kSlots - 1) / kSlots);
     const auto s = static_cast<cudaStream_t>(stream);
     if (attrs != nullptr) {
       slot_lists_kernel<kQuarters><<<grid, kSlots * kQuarters, 0, s>>>(
           sorted_gauss, starts, counts, reinterpret_cast<const float4*>(attrs),
-          gidx, reinterpret_cast<float4*>(rows), k_tile, dead);
+          gidx, reinterpret_cast<float4*>(rows), k_tile, dead, tile0);
     } else {
       slot_lists_kernel<1><<<grid, kSlots, 0, s>>>(
-          sorted_gauss, starts, counts, nullptr, gidx, nullptr, k_tile, dead);
+          sorted_gauss, starts, counts, nullptr, gidx, nullptr, k_tile, dead,
+          tile0);
     }
   }
   return static_cast<int>(cudaGetLastError());

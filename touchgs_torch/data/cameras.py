@@ -85,6 +85,17 @@ class Cameras:
             c2w=self.c2w[idx], width=self.width, height=self.height,
         )
 
+    def stacked(self, device: torch.device | str = "cuda") -> Camera:
+        """All cameras as one `Camera` on ``device`` whose fields carry a
+        leading batch axis: (N,) intrinsics and an (N, 4, 4) c2w, float32;
+        ``width``/``height`` stay plain ints."""
+        def t(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+        return Camera(fx=t(self.fx), fy=t(self.fy), cx=t(self.cx),
+                      cy=t(self.cy), c2w=t(self.c2w), width=self.width,
+                      height=self.height)
+
     def rescale(self, factor: float) -> "Cameras":
         """Rescale output resolution (nerfstudio `rescale_output_resolution`,
         dataparser_tactile.py:290)."""

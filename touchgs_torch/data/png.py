@@ -120,11 +120,14 @@ def _unfilter(raw: np.ndarray, height: int, row_bytes: int, bpp: int,
     return pad[1:, 1:].reshape(height, row_bytes).astype(np.uint8)
 
 
-def decode_png(path: str | os.PathLike) -> Decoded:
-    """Decode a non-interlaced PNG (see the module docstring for what it
-    takes); ``NotImplementedError`` for an interlaced one, ``ValueError``
-    for anything else it does not take."""
-    data = Path(path).read_bytes()
+def decode_png(path: str | os.PathLike | bytes) -> Decoded:
+    """Decode a non-interlaced PNG, a file or its bytes (see the module
+    docstring for what it takes); ``NotImplementedError`` for an
+    interlaced one, ``ValueError`` for anything else it does not take."""
+    if isinstance(path, bytes):
+        data, path = path, "<bytes>"
+    else:
+        data = Path(path).read_bytes()
     if not data.startswith(SIGNATURE):
         raise ValueError(f"{path}: not a PNG file")
     header = palette = None
@@ -268,6 +271,11 @@ def write_png(path: str | os.PathLike, array: np.ndarray) -> None:
     """Write (H, W) uint8 as 8-bit gray, (H, W, 2), (H, W, 3) or (H, W, 4)
     uint8 as gray+alpha, RGB or RGBA, or (H, W) uint16 as 16-bit gray;
     every row under the Up filter."""
+    Path(path).write_bytes(encode_png(array, path))
+
+
+def encode_png(array: np.ndarray, path="<bytes>") -> bytes:
+    """``write_png``'s file as bytes (``path`` names it in errors)."""
     a = np.asarray(array)
     if a.dtype == np.uint8 and a.ndim == 2:
         color, depth = 0, 8
@@ -285,10 +293,9 @@ def write_png(path: str | os.PathLike, array: np.ndarray) -> None:
     up[1:] -= rows[:-1]                      # uint8 wraps, as the filter does
     filtered = np.concatenate([np.full((h, 1), 2, np.uint8), up], axis=1)
     ihdr = struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, 0)
-    Path(path).write_bytes(
-        SIGNATURE + _chunk(b"IHDR", ihdr)
-        + _chunk(b"IDAT", zlib.compress(filtered.tobytes(), 6))
-        + _chunk(b"IEND", b""))
+    return (SIGNATURE + _chunk(b"IHDR", ihdr)
+            + _chunk(b"IDAT", zlib.compress(filtered.tobytes(), 6))
+            + _chunk(b"IEND", b""))
 
 
 def _nearest_index(n_in: int, n_out: int) -> np.ndarray:

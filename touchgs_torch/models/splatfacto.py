@@ -33,27 +33,21 @@ from touchgs_torch.ops.sh import eval_sh
 from touchgs_torch.ops.ssim import ssim_cm
 
 
-def render(
+def shade(
     params: GaussianParams,
     camera: Camera,
     cfg: ModelConfig,
     active_sh_degree: Optional[int] = None,
     background: Optional[torch.Tensor] = None,
     means2d_offset: Optional[torch.Tensor] = None,
-    use_dense: bool = False,
-    k_tile: Optional[int] = None,
-    tile_shards: int = 0,
-) -> tuple[RenderOutput, ProjectedGaussians]:
-    """Render one view. Returns (outputs, projected) — `projected` feeds the
-    densification statistics (radii, validity)."""
-    rcfg = cfg.rasterize
-    if k_tile is None:
-        k_tile = rcfg.k_tile
+) -> tuple:
+    """What `render` hands its rasterizer: (projected, colors, opacities,
+    background) of one view."""
     opacities = params.opacities()
     proj = project_gaussians(
         params.means, params.quats, params.scales(),
         camera.w2c, camera.fx, camera.fy, camera.cx, camera.cy,
-        camera.width, camera.height, rcfg,
+        camera.width, camera.height, cfg.rasterize,
         extra_valid=params.alive,
         # culling radii only (ceil'd, so no gradient): keep the binning
         # side-path out of the autograd graph
@@ -71,7 +65,36 @@ def render(
     bg = (background if background is not None
           else torch.tensor(cfg.background, dtype=torch.float32,
                             device=params.means.device))
+    return proj, colors, opacities, bg
+
+
+def render(
+    params: GaussianParams,
+    camera: Camera,
+    cfg: ModelConfig,
+    active_sh_degree: Optional[int] = None,
+    background: Optional[torch.Tensor] = None,
+    means2d_offset: Optional[torch.Tensor] = None,
+    use_dense: bool = False,
+    k_tile: Optional[int] = None,
+    tile_shards: int = 0,
+    mesh=None,
+) -> tuple[RenderOutput, ProjectedGaussians]:
+    """Render one view. Returns (outputs, projected) — `projected` feeds the
+    densification statistics (radii, validity).  With a ``mesh``
+    (``parallel.mesh.Mesh``), ``params`` are this rank's rows of a
+    row-sharded capacity: projection and SH run on them, the rasterizer
+    gathers what it needs, and the image comes back whole on every rank;
+    ``projected`` stays this rank's rows."""
+    rcfg = cfg.rasterize
+    if k_tile is None:
+        k_tile = rcfg.k_tile
+    proj, colors, opacities, bg = shade(params, camera, cfg, active_sh_degree,
+                                        background, means2d_offset)
     if use_dense:
+        if mesh is not None:
+            raise ValueError("the dense oracle renders one process's rows: "
+                             "pass mesh=None")
         out = rasterize_dense(
             proj, colors, opacities, camera.width, camera.height, rcfg,
             background=bg,
@@ -80,13 +103,14 @@ def render(
         out = rasterize_cuda(
             proj, colors, opacities, camera.width, camera.height, rcfg,
             background=bg, k_tile=k_tile, k_chunk=rcfg.k_chunk,
-            tile_shards=tile_shards,
+            tile_shards=tile_shards, mesh=mesh,
         )
     else:
         # the scan path takes k_tile but not k_chunk, as in the JAX package
         out = rasterize_tiled(
             proj, colors, opacities, camera.width, camera.height, rcfg,
             background=bg, k_tile=k_tile, tile_shards=tile_shards,
+            mesh=mesh,
         )
     return out, proj
 

@@ -39,8 +39,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # launcher argument types: pointers and the stream as c_void_p
 SIGNATURES = {
     # sorted_gauss, starts, counts, attrs (or null), gidx, rows (or null);
-    # n_tiles, k_tile, dead; stream
-    "slot_lists": [_P] * 6 + [_I] * 3 + [_P],
+    # n_tiles, k_tile, dead, tile0; stream
+    "slot_lists": [_P] * 6 + [_I] * 4 + [_P],
     "composite_fwd": [_P, _P, _P, _P] + [_I] * 6 + [_F, _F, _I, _P],
     "composite_bwd": [_P] * 6 + [_I] * 6 + [_F, _F, _P],
     "compile_smoke": [_P, _P, _I, _P],

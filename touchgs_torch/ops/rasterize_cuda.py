@@ -20,13 +20,21 @@ Each wrapper dispatches on its tensors' device: on the CPU it runs the
 plain PyTorch version in ``ops.rasterize_plain``; on CUDA it launches its
 kernel or raises.  ``launches`` counts kernel launches by name.
 
+``rasterize_cuda`` renders one view, its tile grid whole or in slices
+(``tile_shards``; with a ``mesh`` each rank composites its own slice, as
+the JAX package's ``shard_map`` region does, ``rasterize_pallas.py:629-
+686``).  ``rasterize_cuda_scenes`` renders S scenes through one launch of
+each kernel, where the JAX package vmaps the kernels over a scene axis
+(``parallel/multiscene.py:109-132``).
+
 Attribute layout (16 columns): [mx, my, ca~, cb~, cc~, op, z, r, g, b, 0..]
 where ca~ = ½·log2(e)·conic_a, cb~ = log2(e)·conic_b, cc~ = ½·log2(e)·conic_c,
 so the kernels evaluate α = op·2^(−σ̃) with one exp2.
 """
 from __future__ import annotations
 
-from typing import Optional
+import threading
+from typing import Optional, Sequence
 
 import torch
 
@@ -37,20 +45,24 @@ from touchgs_torch.ops.cuda_build import check_tensor as _check
 from touchgs_torch.ops.cuda_build import on_cuda as _on_cuda
 from touchgs_torch.ops.projection import ProjectedGaussians
 from touchgs_torch.ops.rasterize_ref import RenderOutput
-from touchgs_torch.ops.tiles import TileBins, bin_gaussians
+from touchgs_torch.ops.tiles import TileBins, bin_gaussians, gather_projection
 
 _LOG2E = 1.4426950408889634
 _DMA_ALIGN = 128  # k_tile stays a multiple of this, as in the JAX package
 
-# kernel launches by wrapper; only a launch of the CUDA kernel counts
+# kernel launches by wrapper; only a launch of the CUDA kernel counts.  A
+# live viewer renders on another thread than training, so the counts are
+# incremented under a lock.
 launches = {"slot_lists": 0, "slot_rows": 0, "composite_fwd": 0,
             "composite_bwd": 0}
+_count_lock = threading.Lock()
 
 
 def _launch(name: str, key: str, *args) -> None:
     """Launch ``<name>_launch`` on the current stream; count it as ``key``."""
     cuda_build.call(name, *args, cuda_build.current_stream())
-    launches[key] += 1
+    with _count_lock:
+        launches[key] += 1
 
 
 def _check_geometry(th, tw, k_tile, k_chunk):
@@ -70,30 +82,31 @@ def _check_lists(sorted_gauss, tile_starts, counts, n_tiles):
 
 
 def slot_lists(sorted_gauss, tile_starts, counts, n_tiles: int, k_tile: int,
-               dead: int) -> torch.Tensor:
+               dead: int, tile0: int = 0) -> torch.Tensor:
     """K1: (n_tiles, k_tile) int32 front-packed per-tile lists; ``counts``
-    is each tile's count capped at k_tile."""
+    is each tile's count capped at k_tile.  ``tile0`` is the grid index of
+    the first tile when the lists are a slice of the grid's."""
     if not _on_cuda(sorted_gauss, tile_starts, counts):
         return plain.slot_lists_plain(sorted_gauss, tile_starts, counts,
-                                      n_tiles, k_tile, dead)
+                                      n_tiles, k_tile, dead, tile0)
     _check_lists(sorted_gauss, tile_starts, counts, n_tiles)
     out = torch.empty((n_tiles, k_tile), dtype=torch.int32,
                       device=sorted_gauss.device)
     _launch("slot_lists", "slot_lists", sorted_gauss.data_ptr(),
             tile_starts.data_ptr(), counts.data_ptr(), None, out.data_ptr(),
-            None, n_tiles, k_tile, dead)
+            None, n_tiles, k_tile, dead, tile0)
     return out
 
 
 def slot_rows(attrs, sorted_gauss, tile_starts, counts, n_tiles: int,
-              k_tile: int, dead: int) -> tuple:
+              k_tile: int, dead: int, tile0: int = 0) -> tuple:
     """K1 with rows: (gidx, rows), ``slot_lists``'s (n_tiles, k_tile) int32
     lists and the (n_tiles, k_tile, 16) f32 rows ``attrs[gidx]``, bit for
     bit, written in one pass.  ``attrs`` is the packed (dead + 512, 16)
     table of ``_pack_attrs``, 16-byte aligned."""
     if not _on_cuda(attrs, sorted_gauss, tile_starts, counts):
         return plain.slot_rows_plain(attrs, sorted_gauss, tile_starts,
-                                     counts, n_tiles, k_tile, dead)
+                                     counts, n_tiles, k_tile, dead, tile0)
     _check_lists(sorted_gauss, tile_starts, counts, n_tiles)
     _check(attrs, "attrs", torch.float32, (dead + plain.DEAD_SPREAD, plain.A))
     if attrs.data_ptr() % 16:
@@ -105,7 +118,7 @@ def slot_rows(attrs, sorted_gauss, tile_starts, counts, n_tiles: int,
                        device=attrs.device)
     _launch("slot_lists", "slot_rows", sorted_gauss.data_ptr(),
             tile_starts.data_ptr(), counts.data_ptr(), attrs.data_ptr(),
-            gidx.data_ptr(), rows.data_ptr(), n_tiles, k_tile, dead)
+            gidx.data_ptr(), rows.data_ptr(), n_tiles, k_tile, dead, tile0)
     return gidx, rows
 
 
@@ -119,9 +132,9 @@ class _SlotRows(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, attrs, sorted_gauss, tile_starts, counts, n_tiles,
-                k_tile, dead):
+                k_tile, dead, tile0=0):
         gidx, rows = slot_rows(attrs, sorted_gauss, tile_starts, counts,
-                               n_tiles, k_tile, dead)
+                               n_tiles, k_tile, dead, tile0)
         ctx.mark_non_differentiable(gidx)
         ctx.save_for_backward(gidx)
         ctx.attrs_shape = attrs.shape
@@ -133,7 +146,7 @@ class _SlotRows(torch.autograd.Function):
         dattrs = grad_rows.new_zeros(ctx.attrs_shape)
         torch.ops.aten._index_put_impl_(dattrs, (gidx,), grad_rows,
                                         accumulate=True, unsafe=True)
-        return dattrs, None, None, None, None, None, None
+        return dattrs, None, None, None, None, None, None, None
 
 
 def forward_tiles(n_chunks, tile_ids, attrs_tiled, th, tw, k_tile, k_chunk,
@@ -208,10 +221,9 @@ class _CompositeTiles(torch.autograd.Function):
         return dattrs, None, None, None, None
 
 
-def _pack_attrs(proj: ProjectedGaussians, colors, opacities) -> torch.Tensor:
-    """(N + 512, 16) packed attributes; rows ≥ N are dead (zero).  The conic
-    columns carry the exp→exp2 constants; autograd folds them back into the
-    conic gradients."""
+def _attr_rows(proj: ProjectedGaussians, colors, opacities) -> torch.Tensor:
+    """(N, 16) packed attributes.  The conic columns carry the exp→exp2
+    constants; autograd folds them back into the conic gradients."""
     N = proj.means2d.shape[0]
     zeros = proj.means2d.new_zeros((N,))
     cols = [zeros] * plain.A
@@ -225,59 +237,94 @@ def _pack_attrs(proj: ProjectedGaussians, colors, opacities) -> torch.Tensor:
     cols[plain.R] = colors[:, 0]
     cols[plain.G] = colors[:, 1]
     cols[plain.B] = colors[:, 2]
-    attrs = torch.stack(cols, dim=-1)
-    return torch.cat([attrs, attrs.new_zeros((plain.DEAD_SPREAD, plain.A))],
+    return torch.stack(cols, dim=-1)
+
+
+def _with_dead_rows(rows: torch.Tensor) -> torch.Tensor:
+    """The table ``rows`` followed by the 512 dead (zero) rows."""
+    return torch.cat([rows, rows.new_zeros((plain.DEAD_SPREAD, plain.A))],
                      dim=0)
 
 
-def rasterize_cuda(
-    proj: ProjectedGaussians,
-    colors: torch.Tensor,
-    opacities: torch.Tensor,
-    width: int,
-    height: int,
-    cfg: RasterizeConfig = RasterizeConfig(),
-    background: Optional[torch.Tensor] = None,
-    bins: Optional[TileBins] = None,
-    k_tile: Optional[int] = None,
-    k_chunk: int = 64,
-    early_exit: bool = True,
-    tile_shards: int = 0,
-) -> RenderOutput:
-    """Render through the tile kernels (their plain versions on the CPU).
-    ``early_exit=False`` turns off the forward's tile-wide exit."""
-    if tile_shards > 1:
-        raise NotImplementedError(
-            "tile_shards > 1 (sharded compositing) is not ported yet: "
-            "ROADMAP.md queue A, item 18 (Multi-GPU)")
-    if bins is None:
-        bins = bin_gaussians(proj, width, height, cfg)
-    if k_tile is None:
-        k_tile = cfg.k_tile
-    n_tx, n_ty = bins.n_tiles_x, bins.n_tiles_y
-    n_tiles = n_tx * n_ty
-    th, tw = cfg.tile_h, cfg.tile_w
-    N = proj.means2d.shape[0]
+def _pack_attrs(proj: ProjectedGaussians, colors, opacities) -> torch.Tensor:
+    """(N + 512, 16) packed attributes; rows ≥ N are dead (zero)."""
+    return _with_dead_rows(_attr_rows(proj, colors, opacities))
+
+
+def _fit_k_tile(k_tile: int, k_chunk: int, N: int) -> int:
+    """The per-tile cap: at most max(k_chunk, N), rounded up to a multiple
+    of k_chunk and of 128, as in the JAX package."""
     if not (_DMA_ALIGN % k_chunk == 0 or k_chunk % _DMA_ALIGN == 0):
         raise ValueError(f"k_chunk={k_chunk} must divide {_DMA_ALIGN} "
                          f"or be a multiple of it")
     k_tile = min(k_tile, max(k_chunk, N))
     k_tile = -(-k_tile // k_chunk) * k_chunk        # multiple of k_chunk
-    k_tile = -(-k_tile // _DMA_ALIGN) * _DMA_ALIGN  # and of 128
+    return -(-k_tile // _DMA_ALIGN) * _DMA_ALIGN    # and of 128
 
-    attrs = _pack_attrs(proj, colors, opacities)
-    capped = torch.clamp(bins.tile_counts, max=k_tile)
-    # (n_tiles, k_tile, 16) rows attrs[gidx]; their backward is a scatter-add
-    attrs_tiled, _ = _SlotRows.apply(attrs, bins.sorted_gauss,
-                                     bins.tile_starts, capped, n_tiles,
-                                     k_tile, N)
+
+def _composite(attrs, sorted_gauss, tile_starts, counts, tile_ids, geom,
+               early_exit: bool, tile0: int = 0) -> torch.Tensor:
+    """K1 with rows, then K2 (with K3 as its backward), over the tiles whose
+    ``tile_starts``, uncapped ``counts`` and grid ``tile_ids`` are given;
+    ``tile0`` is the grid index of the first.  ``attrs`` is the packed
+    table with its dead rows.  Returns the tiles' (n, 8, th·tw) stack."""
+    th, tw, k_tile, k_chunk, n_tx, cfg = geom
+    n = counts.shape[0]
+    capped = torch.clamp(counts, max=k_tile)
+    # (n, k_tile, 16) rows attrs[gidx]; their backward is a scatter-add
+    attrs_tiled, _ = _SlotRows.apply(attrs, sorted_gauss, tile_starts,
+                                     capped, n, k_tile,
+                                     attrs.shape[0] - plain.DEAD_SPREAD,
+                                     tile0)
     n_chunks = torch.div(capped + k_chunk - 1, k_chunk,
                          rounding_mode="floor").to(torch.int32)
-    tile_ids = torch.arange(n_tiles, dtype=torch.int32, device=attrs.device)
-    stack = _CompositeTiles.apply(attrs_tiled, n_chunks, tile_ids,
-                                  (th, tw, k_tile, k_chunk, n_tx, cfg),
-                                  early_exit)
+    return _CompositeTiles.apply(attrs_tiled, n_chunks, tile_ids, geom,
+                                 early_exit)
 
+
+def _composite_shards(attrs, bins: TileBins, geom, early_exit: bool,
+                      tile_shards: int, mesh) -> torch.Tensor:
+    """The (n_tiles, 8, th·tw) stack of the whole grid.  With more than one
+    shard the grid is padded to a multiple of their number and cut into
+    contiguous slices, each composited by its own launches of K1 (with the
+    slice's first tile as ``tile0``), K2 and K3 with the slice's grid
+    tile ids.  With a mesh this rank composites its slice and all-gathers
+    the others'; without one every slice runs here, in order.  Padded
+    tiles have no entries and are dropped."""
+    n_tiles = bins.tile_counts.shape[0]
+    tile_ids = torch.arange(n_tiles, dtype=torch.int32,
+                            device=attrs.device)
+    if mesh is not None:
+        if tile_shards not in (0, mesh.size):
+            raise ValueError(f"tile_shards={tile_shards} with a mesh of "
+                             f"{mesh.size} ranks: want 0 or {mesh.size}")
+        tile_shards = mesh.size
+    elif tile_shards <= 1:
+        return _composite(attrs, bins.sorted_gauss, bins.tile_starts,
+                          bins.tile_counts, tile_ids, geom, early_exit)
+    per = -(-n_tiles // tile_shards)
+    pad = per * tile_shards - n_tiles
+    starts, counts, tile_ids = (torch.nn.functional.pad(a, (0, pad))
+                                for a in (bins.tile_starts, bins.tile_counts,
+                                          tile_ids))
+
+    def shard(s):
+        sl = slice(s * per, (s + 1) * per)
+        return _composite(attrs, bins.sorted_gauss, starts[sl].contiguous(),
+                          counts[sl].contiguous(), tile_ids[sl].contiguous(),
+                          geom, early_exit, tile0=s * per)
+
+    if mesh is not None:
+        stack = mesh.gather_tiles(shard(mesh.rank))
+    else:
+        stack = torch.cat([shard(s) for s in range(tile_shards)])
+    return stack[:n_tiles]
+
+
+def _finish(stack, tile_counts, k_tile: int, n_tx: int, n_ty: int, th: int,
+            tw: int, width: int, height: int, background) -> RenderOutput:
+    """The image of a grid's (n_tiles, 8, th·tw) stack, with the
+    background, the normalised depth and the truncation telemetry."""
     def assemble(a):
         a = a.reshape(n_ty, n_tx, th, tw)
         a = a.transpose(1, 2).reshape(n_ty * th, n_tx * tw)
@@ -298,6 +345,124 @@ def rasterize_cuda(
     # unsaturated when the scan ended lost real contributions
     t_final = stack[:, plain.ROW_T].detach()
     unsat_frac = torch.mean((t_final > 1e-3).float(), dim=-1)
-    lossy = torch.sum((bins.tile_counts > k_tile) & (unsat_frac > 0.1)
+    lossy = torch.sum((tile_counts > k_tile) & (unsat_frac > 0.1)
                       ).to(torch.int32)
     return RenderOutput(rgb=rgb, depth=dep, acc=acc, lossy_tiles=lossy)
+
+
+def rasterize_cuda(
+    proj: ProjectedGaussians,
+    colors: torch.Tensor,
+    opacities: torch.Tensor,
+    width: int,
+    height: int,
+    cfg: RasterizeConfig = RasterizeConfig(),
+    background: Optional[torch.Tensor] = None,
+    bins: Optional[TileBins] = None,
+    k_tile: Optional[int] = None,
+    k_chunk: int = 64,
+    early_exit: bool = True,
+    tile_shards: int = 0,
+    mesh=None,
+) -> RenderOutput:
+    """Render through the tile kernels (their plain versions on the CPU).
+    ``early_exit=False`` turns off the forward's tile-wide exit.
+
+    ``tile_shards > 1`` composites the tile grid in that many contiguous
+    slices (``_composite_shards``); the image equals the unsharded one.
+    ``mesh`` (``parallel.mesh.Mesh``) makes ``proj``, ``colors`` and
+    ``opacities`` this rank's rows of a row-sharded capacity: the binning
+    inputs and the packed attribute table are all-gathered (the table's
+    gradient reduce-scattered back), binning runs on every rank, and each
+    rank composites its slice of the grid, all-gathered for the image
+    that every rank returns whole."""
+    if mesh is not None:
+        if bins is None:
+            bins = bin_gaussians(gather_projection(proj, mesh), width,
+                                 height, cfg)
+        attrs = _with_dead_rows(mesh.gather_rows(
+            _attr_rows(proj, colors, opacities)))
+    else:
+        if bins is None:
+            bins = bin_gaussians(proj, width, height, cfg)
+        attrs = _pack_attrs(proj, colors, opacities)
+    N = attrs.shape[0] - plain.DEAD_SPREAD
+    k_tile = _fit_k_tile(cfg.k_tile if k_tile is None else k_tile, k_chunk,
+                         N)
+    n_tx, n_ty = bins.n_tiles_x, bins.n_tiles_y
+    geom = (cfg.tile_h, cfg.tile_w, k_tile, k_chunk, n_tx, cfg)
+    stack = _composite_shards(attrs, bins, geom, early_exit, tile_shards,
+                              mesh)
+    return _finish(stack, bins.tile_counts, k_tile, n_tx, n_ty, cfg.tile_h,
+                   cfg.tile_w, width, height, background)
+
+
+def pack_scenes(
+    projs: Sequence[ProjectedGaussians],
+    colors: Sequence[torch.Tensor],
+    opacities: Sequence[torch.Tensor],
+    width: int,
+    height: int,
+    cfg: RasterizeConfig = RasterizeConfig(),
+    k_tile: Optional[int] = None,
+    k_chunk: int = 64,
+) -> dict:
+    """The kernels' inputs for S scenes of one resolution and one capacity
+    C as one tile grid: the scenes' grids concatenated, scene s's sorted
+    Gaussians offset by s·C into one packed table (``attrs``) of S·C rows
+    and the 512 dead rows, its tile starts by the pairs of the scenes
+    before it, and each scene's tiles carrying the grid's ``tile_ids``,
+    from which K2 and K3 take the pixel origin.  Also each scene's
+    ``bins`` and the kernels' ``geom``."""
+    S = len(projs)
+    N = projs[0].means2d.shape[0]
+    bins = [bin_gaussians(p, width, height, cfg) for p in projs]
+    k_tile = _fit_k_tile(cfg.k_tile if k_tile is None else k_tile, k_chunk,
+                         N)
+    n_tx, n_ty = bins[0].n_tiles_x, bins[0].n_tiles_y
+    attrs = _with_dead_rows(torch.cat(
+        [_attr_rows(p, c, o) for p, c, o in zip(projs, colors, opacities)]))
+    offsets = [0]
+    for b in bins[:-1]:
+        offsets.append(offsets[-1] + b.sorted_gauss.shape[0])
+    return dict(
+        attrs=attrs, bins=bins,
+        sorted_gauss=torch.cat([b.sorted_gauss + s * N
+                                for s, b in enumerate(bins)]),
+        tile_starts=torch.cat([b.tile_starts + o
+                               for b, o in zip(bins, offsets)]),
+        tile_counts=torch.cat([b.tile_counts for b in bins]),
+        tile_ids=torch.arange(n_tx * n_ty, dtype=torch.int32,
+                              device=attrs.device).repeat(S),
+        geom=(cfg.tile_h, cfg.tile_w, k_tile, k_chunk, n_tx, cfg))
+
+
+def rasterize_cuda_scenes(
+    projs: Sequence[ProjectedGaussians],
+    colors: Sequence[torch.Tensor],
+    opacities: Sequence[torch.Tensor],
+    width: int,
+    height: int,
+    cfg: RasterizeConfig = RasterizeConfig(),
+    backgrounds: Optional[Sequence[torch.Tensor]] = None,
+    k_tile: Optional[int] = None,
+    k_chunk: int = 64,
+    early_exit: bool = True,
+) -> list:
+    """Render S scenes of one resolution and one capacity through one
+    launch each of K1, K2 and K3 on ``pack_scenes``'s grid.  Each scene's
+    image, and its gradients, equal those of ``rasterize_cuda`` alone; the
+    dead slots' indices differ, their rows (zero) do not.  Returns the S
+    ``RenderOutput``s."""
+    x = pack_scenes(projs, colors, opacities, width, height, cfg, k_tile,
+                    k_chunk)
+    stack = _composite(x["attrs"], x["sorted_gauss"], x["tile_starts"],
+                       x["tile_counts"], x["tile_ids"], x["geom"], early_exit)
+    th, tw, k_tile, _, n_tx, _ = x["geom"]
+    n_ty = x["bins"][0].n_tiles_y
+    n_tiles = n_tx * n_ty
+    if backgrounds is None:
+        backgrounds = [None] * len(projs)
+    return [_finish(stack[s * n_tiles:(s + 1) * n_tiles], b.tile_counts,
+                    k_tile, n_tx, n_ty, th, tw, width, height, bg)
+            for s, (b, bg) in enumerate(zip(x["bins"], backgrounds))]

@@ -29,11 +29,13 @@ DEAD_SPREAD = 512  # zero rows appended to the attribute table
 
 
 def slot_lists_plain(sorted_gauss, tile_starts, counts, n_tiles: int,
-                     k_tile: int, dead: int) -> torch.Tensor:
+                     k_tile: int, dead: int, tile0: int = 0) -> torch.Tensor:
     """(n_tiles, k_tile) int32: slot j of tile t is sorted position
-    starts[t] + j for j < counts[t], else dead + ((j + 131·t) & 511)."""
+    starts[t] + j for j < counts[t], else dead + ((j + 131·(tile0 + t)) &
+    511); ``tile0`` is the first tile of a slice of the grid."""
     dev = sorted_gauss.device
-    t = torch.arange(n_tiles, dtype=torch.int32, device=dev)[:, None]
+    t = torch.arange(tile0, tile0 + n_tiles, dtype=torch.int32,
+                     device=dev)[:, None]
     j = torch.arange(k_tile, dtype=torch.int32, device=dev)[None, :]
     live = j < counts[:, None]
     pos = torch.where(live, tile_starts[:, None] + j, torch.zeros_like(j))
@@ -43,11 +45,11 @@ def slot_lists_plain(sorted_gauss, tile_starts, counts, n_tiles: int,
 
 
 def slot_rows_plain(attrs, sorted_gauss, tile_starts, counts, n_tiles: int,
-                    k_tile: int, dead: int) -> tuple:
+                    k_tile: int, dead: int, tile0: int = 0) -> tuple:
     """(gidx, rows): ``slot_lists_plain``'s lists and the (n_tiles, k_tile,
     16) attribute rows ``attrs[gidx]`` they name."""
     gidx = slot_lists_plain(sorted_gauss, tile_starts, counts, n_tiles,
-                            k_tile, dead)
+                            k_tile, dead, tile0)
     return gidx, attrs[gidx]
 
 

@@ -14,6 +14,13 @@ the 800x800 flagship.
 The path has no kernel of its own, on any device: its JAX original is jnp
 with no Pallas kernel.  It reports no truncation telemetry
 (``lossy_tiles`` is None).
+
+``tile_shards > 0`` (the JAX package's SPMD mode) makes the blocks the
+grid's ``tile_shards`` contiguous slices, padded to equal size; with a
+``mesh`` (``parallel.mesh.Mesh``) the inputs are this rank's rows of a
+row-sharded capacity, the attribute table and the binning inputs are
+all-gathered, and each rank composites its own slice, all-gathered into
+the image every rank returns whole (as ``rasterize_cuda``).
 """
 from __future__ import annotations
 
@@ -25,7 +32,7 @@ from torch.utils.checkpoint import checkpoint
 from touchgs_torch.config import RasterizeConfig
 from touchgs_torch.ops.projection import ProjectedGaussians
 from touchgs_torch.ops.rasterize_ref import RenderOutput
-from touchgs_torch.ops.tiles import TileBins, bin_gaussians
+from touchgs_torch.ops.tiles import TileBins, bin_gaussians, gather_projection
 
 # columns of the gathered attribute table
 _MX, _MY, _CA, _CB, _CC, _R, _G, _B, _OP, _Z = range(10)
@@ -67,29 +74,39 @@ def rasterize_tiled(
     k_tile: int = 1024,        # max gaussians composited per tile (front-most)
     k_chunk: int = 64,         # gaussians per scan step
     tile_block: int = 64,      # tiles per block
-    tile_shards: int = 0,
+    tile_shards: int = 0,      # >0: the grid in this many slices
+    mesh=None,                 # this rank composites its slice (see above)
 ) -> RenderOutput:
-    if tile_shards > 0:
-        raise NotImplementedError(
-            "tile_shards > 0 (the scan path's SPMD mode) is not ported yet: "
-            "ROADMAP.md queue A, item 18 (Multi-GPU)")
+    if mesh is not None and tile_shards not in (0, mesh.size):
+        raise ValueError(f"tile_shards={tile_shards} with a mesh of "
+                         f"{mesh.size} ranks: want 0 or {mesh.size}")
     if bins is None:
-        bins = bin_gaussians(proj, width, height, cfg)
+        bins = bin_gaussians(proj if mesh is None
+                             else gather_projection(proj, mesh),
+                             width, height, cfg)
     n_tx, n_ty = bins.n_tiles_x, bins.n_tiles_y
     n_tiles = n_tx * n_ty
     th, tw = cfg.tile_h, cfg.tile_w
     M = bins.sorted_gauss.shape[0]
-    N = proj.means2d.shape[0]
     dev = proj.means2d.device
-    # don't scan more entries than gaussians exist, nor pad past the tile count
-    k_tile = min(k_tile, N)
-    tile_block = min(tile_block, n_tiles)
 
     # one table of the attributes with a dead zero row at index N, which
     # masked entries gather harmlessly; its gradient row is dropped
     table = torch.cat([proj.means2d, proj.conics, colors, opacities[:, None],
                        proj.depths[:, None]], dim=1)
+    if mesh is not None:
+        table = mesh.gather_rows(table)
+        tile_shards = mesh.size
+    N = table.shape[0]
     table = torch.cat([table, table.new_zeros((1, table.shape[1]))], dim=0)
+    # don't scan more entries than gaussians exist, nor pad past the tile count
+    k_tile = min(k_tile, N)
+    if tile_shards > 0:
+        tile_block = -(-n_tiles // tile_shards)
+        pad_tiles = tile_shards * tile_block - n_tiles
+    else:
+        tile_block = min(tile_block, n_tiles)
+        pad_tiles = (-n_tiles) % tile_block
 
     # per-tile capped index lists: (n_tiles, k_tile) into sorted_gauss
     ks = torch.arange(k_tile, device=dev)
@@ -106,7 +123,6 @@ def rasterize_tiled(
     pix_y = ((tile_ids // n_tx)[:, None] * th + py.reshape(1, -1)) + 0.5
 
     # pad the tiles to a multiple of tile_block, the lists to one of k_chunk
-    pad_tiles = (-n_tiles) % tile_block
     n_steps = -(-k_tile // k_chunk)
     pad_k = n_steps * k_chunk - k_tile
     gidx = torch.nn.functional.pad(gidx, (0, pad_k, 0, pad_tiles), value=N)
@@ -116,7 +132,8 @@ def rasterize_tiled(
     # the backward recomputes each chunk from its carry, as jax.checkpoint
     recompute = torch.is_grad_enabled() and table.requires_grad
     parts = []
-    for b in range(0, n_tiles + pad_tiles, tile_block):
+    blocks = range(0, n_tiles + pad_tiles, tile_block)
+    for b in (blocks if mesh is None else [blocks[mesh.rank]]):
         gi, pxb, pyb = (a[b:b + tile_block] for a in (gidx, pix_x, pix_y))
         B, P = pxb.shape
         carry = (pxb.new_zeros((B, P, 3)), pxb.new_zeros((B, P)),
@@ -128,6 +145,11 @@ def rasterize_tiled(
                      if recompute else _chunk(*args))
         parts.append(carry)
     rgb, dep, acc, logT = (torch.cat(p, dim=0) for p in zip(*parts))
+    if mesh is not None:
+        full = mesh.gather_tiles(torch.cat(
+            [rgb, dep[..., None], acc[..., None], logT[..., None]], dim=-1))
+        rgb, dep, acc, logT = full[..., :3], full[..., 3], full[..., 4], \
+            full[..., 5]
 
     def assemble(a):
         a = a[:n_tiles].reshape((n_ty, n_tx, th, tw) + a.shape[2:])

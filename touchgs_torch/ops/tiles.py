@@ -139,3 +139,17 @@ def bin_gaussians(
         n_tiles_x=n_tx,
         n_tiles_y=n_ty,
     )
+
+
+def gather_projection(proj: ProjectedGaussians, mesh) -> ProjectedGaussians:
+    """What binning reads of every rank's rows of a row-sharded projection
+    (``parallel.mesh.Mesh``), all-gathered in rank order and detached:
+    means, depths, radii, cull radii and validity.  Binning is replicated:
+    every rank sorts all the Gaussians' keys, as in the JAX package."""
+    r = proj.radii if proj.cull_radii is None else proj.cull_radii
+    local = torch.stack([proj.means2d[:, 0], proj.means2d[:, 1], proj.depths,
+                         proj.radii, r, proj.valid.float()], dim=-1).detach()
+    full = mesh.gather_rows(local)
+    return ProjectedGaussians(means2d=full[:, :2], conics=None,
+                              depths=full[:, 2], radii=full[:, 3],
+                              valid=full[:, 5] > 0, cull_radii=full[:, 4])

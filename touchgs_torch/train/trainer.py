@@ -7,8 +7,9 @@ growth; checkpoints through ``train/checkpoint.py``; with
 ``cfg.pose_opt.mode == "SO3xR3"`` per-camera pose deltas optimized with the
 model (``models/pose_opt.py``).  PyTorch runs eagerly, so the step is a
 plain function; parameters, Adam moments and densify statistics are updated
-in place where the JAX package returns new arrays.  The live viewer is not
-ported yet (ROADMAP.md A19).
+in place where the JAX package returns new arrays.  ``run(viewer=...)``
+publishes the status and a clone of the parameters to a live
+``viewer.ViewerServer`` at each log point.
 """
 from __future__ import annotations
 
@@ -98,13 +99,15 @@ def _finite_dead_slots(gauss: dict, alive: torch.Tensor) -> dict:
 
 
 def make_train_step(cfg: TrainConfig, optimizer: FusedAdam,
-                    k_tile: Optional[int] = None) -> Callable:
+                    k_tile: Optional[int] = None,
+                    tile_shards: int = 0) -> Callable:
     """The train step: (state, camera, image, depth, unc, active_sh_degree
     [, view_idx]) → (state, metrics), updating ``state`` in place.
     ``view_idx`` selects the camera's row of ``state.pose_deltas`` when the
     SO3xR3 pose optimizer is on (cfg.pose_opt.mode).  Metrics are device
     scalars, so the step never waits for the device.  ``k_tile`` overrides
-    the config's per-tile entry cap."""
+    the config's per-tile entry cap; ``tile_shards`` composites the tile
+    grid in that many slices (``render``)."""
     pose_on = cfg.pose_opt.mode != "off"
 
     def step_fn(state: TrainState, camera: Camera, image, depth, unc,
@@ -127,7 +130,7 @@ def make_train_step(cfg: TrainConfig, optimizer: FusedAdam,
         out, proj = render(
             dataclasses.replace(params, **gauss),
             cam, cfg.model, active_sh_degree=active_sh_degree,
-            means2d_offset=offset0, k_tile=k_tile,
+            means2d_offset=offset0, k_tile=k_tile, tile_shards=tile_shards,
         )
         losses = compute_losses(out, image, depth, unc, cfg.depth,
                                 cfg.ssim_lambda)
@@ -311,10 +314,8 @@ class Trainer:
             ckpt_manager=None, viewer=None) -> dict:
         """Train from ``state.step`` to ``max_steps`` (``cfg.max_steps``),
         saving to ``ckpt_manager`` every ``cfg.checkpoint_every`` steps and
-        at the last one."""
-        if viewer is not None:
-            raise NotImplementedError(
-                "the live viewer is not ported yet (ROADMAP.md A19)")
+        at the last one, and publishing each log point's status and
+        parameters to ``viewer`` (a ``viewer.ViewerServer``)."""
         cfg = self.cfg
         steps = max_steps if max_steps is not None else cfg.max_steps
         dcfg = cfg.densify
@@ -400,6 +401,11 @@ class Trainer:
                 self.history.append(last_metrics)
                 if log_fn:
                     log_fn(last_metrics)
+                if viewer is not None:
+                    viewer.update_status(
+                        step, last_metrics.get("loss", float("nan")),
+                        last_metrics.get("num_alive", 0),
+                        training=step < steps - 1)
             if ckpt_manager is not None and (
                 (step + 1) % cfg.checkpoint_every == 0 or step == steps - 1
             ):
