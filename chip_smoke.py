@@ -132,6 +132,21 @@ Phases (any failure raises, and the script exits nonzero with no result):
    (``launches_sharded``); K1's lists of each slice (``tile0``) equal the
    global lists' slice, and K1-K3 on the last slice against plain; the
    three steps timed in turns; ``scaling_bench`` at a world of one.
+4i. The native layer (``phase_native``; host C++, no kernel of the
+   port's): the library and both capture tools built with ``make`` from
+   ``touchgs_torch/native/``; phase 4d's scene written again, then, with
+   the launch counters set to 0 just before and read just after, its 36
+   PNGs through ``NativeLoader`` (two threads, prefetched in a shuffled
+   order) and ``decode_png``, each equal to ``data/png.py``'s decode with
+   the same division exactly, ms an image; ``tgs_sync_capture --sim 1``
+   taking 8 frames, replayed through ``SensorLoop`` with the compact nets
+   on the card (all 8 processed, the last frame's depth and wrench within
+   SENSOR_TOL of the CPU's range, ``poses.csv`` with its header and 8
+   rows); ``tgs_capture`` without a camera exiting 1 with its message; a
+   guarded touch on ``ArmSim`` holding 5 N (``launches_native`` in the
+   kernels line: 0).  Where ``g++``, ``make``, zlib or libjpeg is missing
+   it prints ``native: unavailable on this machine: ...``, checks the
+   fallback of ``decode_png`` to ``data/png.py``, and goes on.
 5. The profiling path: ``python -m touchgs_torch.tools.exp_kernel_anatomy
    --bf16``'s work (K4, the flagship's tiles at k_chunk 128, K2 with and
    without its exit, the four K5 ablations, the two K6 probe legs), with
@@ -153,7 +168,8 @@ Phases (any failure raises, and the script exits nonzero with no result):
    the training path's kernels also carry ``launches_hard_scene``,
    ``launches_cli``, ``launches_pipeline``, ``launches_sensor``,
    ``launches_nerf``, ``launches_viewer``, ``launches_multiscene``,
-   ``launches_sharded``, ``parallel_max_abs_err`` (phase 4h's errors
+   ``launches_sharded``, ``launches_native``, ``parallel_max_abs_err``
+   (phase 4h's errors
    against plain) and, under ``hard_scene``, their errors, times and
    bounds at both of its k_tiles),
    then the last line
@@ -171,7 +187,11 @@ phases 4f and 4g alone, and
 
     python3 chip_smoke.py --parallel
 
-phase 4h alone.
+phase 4h alone, and
+
+    python3 chip_smoke.py --native
+
+phase 4i alone.
 
     python3 chip_smoke.py --ab OLD_CSRC
 
@@ -259,6 +279,19 @@ TRAIN_BATCH, TRAIN_STEPS = 4, 20
 TRAIN_LR = {"densetact": 2e-4, "silog": 2e-4, "force": 1e-3}
 # phase 4g, the NeRF at NerfConfig() on phase 4d's scene
 NERF_DS_STEPS, NERF_URF_STEPS = 300, 50
+# phase 4i, the native layer: phase 4d's scene through the threaded loader
+# in a shuffled order; a simulated capture replayed through the sensor loop
+NATIVE_THREADS, NATIVE_SEED = 2, 17
+CAPTURE_FRAMES, CAPTURE_HZ = 8, 20.0
+# the guarded touch of tests/test_native.py: a yaw base and two pitch links
+# (standard DH rows a, alpha, d, theta), pressed 3 cm into a plane at 5 N
+ARM_DH = [[0.0, -np.pi / 2, 0.4, 0.0], [0.4, 0.0, 0.0, 0.0],
+          [0.3, 0.0, 0.0, 0.0]]
+ARM_MASS = [2.0, 1.5, 0.8]
+ARM_COM = [[0.0, 0.0, 0.2], [0.2, 0.0, 0.0], [0.15, 0.0, 0.0]]
+ARM_Q0 = [0.0, -0.4, 0.8]
+ARM_K, ARM_D = [600.0] * 3 + [30.0] * 3, [50.0] * 3 + [3.0] * 3
+ARM_STEPS, ARM_F_STOP = 12_000, 5.0
 
 
 def bound(nbytes: float, fp32_ops: float = 0.0,
@@ -3273,6 +3306,192 @@ def phase_parallel(card: str, dev=torch.device("cuda")) -> dict:
                        "sharded": err_s}}
 
 
+def guarded_touch(arm_module, steps: int = ARM_STEPS) -> dict:
+    """The guarded touch with ``arm_module``'s ``CompliantArm`` and
+    ``ArmSim`` (the port's, or the JAX package's in the tests): approach
+    along -z at 5 cm/s onto a plane 3 cm below the tool until the contact
+    force reaches ARM_F_STOP, then hold it.  Returns whether it was held
+    after the last step, the contact force, and q after every step."""
+    arm = arm_module.CompliantArm(ARM_DH, ARM_MASS, ARM_COM)
+    z0 = float(arm.fk(ARM_Q0)[2, 3])
+    sim = arm_module.ArmSim(arm, q0=ARM_Q0, plane_z=z0 - 0.03,
+                            k_contact=2000.0)
+    qs = np.empty((steps, len(ARM_Q0)))
+    for i in range(steps):
+        held = sim.step_guarded([0.0, 0.0, -1.0], speed=0.05,
+                                f_stop=ARM_F_STOP, stiffness=ARM_K,
+                                damping=ARM_D, dt=1e-3, tol_n=0.5)
+        qs[i] = np.asarray(sim.state()[0])
+    force = np.asarray(sim.contact_force())
+    arm.close()
+    return {"held": held, "force": force, "q": qs}
+
+
+def native_capture(out, dev, frames: int = CAPTURE_FRAMES) -> dict:
+    """Phase 4i (c): the port's ``tgs_sync_capture --sim 1`` takes
+    ``frames`` synchronized snapshots at CAPTURE_HZ into ``out/capture``
+    (``poses.csv`` with its header and a row each); its ``imgs_cam0/``
+    replays through ``DirectorySource`` and ``SensorLoop`` with the
+    compact nets on ``dev``, every frame processed; the last frame's depth
+    and wrench on ``dev`` within SENSOR_TOL of the range of the CPU's.
+    Returns the times, the loop's stages and the errors."""
+    import subprocess
+
+    from touchgs_torch.native import loader
+    from touchgs_torch.touch.sensor_loop import DirectorySource, SensorLoop
+    from touchgs_torch.touch.sensor_nets import DenseTactSensor
+
+    cap = out / "capture"
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [str(loader.tool("tgs_sync_capture")), "--out", str(cap), "--sim",
+         "1", "--auto-capture", str(frames), "--rate-hz", str(CAPTURE_HZ)],
+        stdin=subprocess.DEVNULL, capture_output=True, text=True, timeout=60)
+    capture_s = time.perf_counter() - t0
+    check(r.returncode == 0, f"tgs_sync_capture exited {r.returncode}: "
+          f"{r.stderr[-300:]}")
+    rows = (cap / "poses.csv").read_text().splitlines()
+    check(rows[0] == "index,frame,x,y,z,qx,qy,qz,qw,stamp"
+          and len(rows) == frames + 1,
+          f"tgs_sync_capture: poses.csv {rows[:1]} and {len(rows) - 1} rows")
+    results = {}
+    sensor = DenseTactSensor(device=dev)
+    loop = SensorLoop(sensor=sensor, rate_hz=LOOP_HZ,
+                      on_frame=lambda i, res: results.__setitem__(i, res))
+    t0 = time.perf_counter()
+    n = loop.run(DirectorySource(cap / "imgs_cam0"))
+    loop_s = time.perf_counter() - t0
+    check(n == frames and sorted(results) == list(range(frames)),
+          f"sensor loop over the capture: {n} frames of {frames}")
+    last = results[frames - 1]
+    cpu = DenseTactSensor(device="cpu")
+    ref_depth = cpu.depth(last["rect"])
+    ref_force = cpu.get_force(last["rect"])
+    errors = {
+        "depth": float((sensor.depth(last["rect"]).cpu() - ref_depth).abs()
+                       .max() / (ref_depth.max() - ref_depth.min())),
+        "force": float(np.abs(last["force"] - ref_force).max()
+                       / np.ptp(ref_force))}
+    check(all(e <= SENSOR_TOL for e in errors.values()),
+          f"capture replay on {dev} against the CPU: {errors} of the range,"
+          f" want <= {SENSOR_TOL}")
+    return {"frames": n, "frame_shape": list(last["rect"].shape),
+            "capture_s": capture_s, "loop_s": loop_s,
+            "loop": loop_stats(loop), "errors": errors}
+
+
+def phase_native(card: str, dev=torch.device("cuda")) -> dict:
+    """Phase 4i: the native layer (``touchgs_torch/native/``), host code
+    with no kernel of the port's.  Where ``g++``, ``make``, zlib or libjpeg
+    is missing it says so, checks that ``decode_png`` falls back to
+    ``data/png.py`` and that ``NativeLoader`` raises, and returns;
+    otherwise any failure raises.
+    Phase 4d's scene is written first (its GT renders through K1 and K2
+    are phase 4d's path, set-up here); then, with the launch counters set
+    to 0 just before and read just after: (a) the library and both tools
+    built from the checkout, timed; (b) every PNG of the scene through
+    ``NativeLoader`` (NATIVE_THREADS threads, all prefetched in a shuffled
+    order, then read in it) and through ``decode_png``, each equal to
+    ``decode_png_plain`` (``data/png.py``) exactly, ms an image each;
+    (c) `native_capture` on ``dev``; (d) ``tgs_capture`` without a camera
+    exits 1 with its message; (e) the guarded touch on ``ArmSim`` holds
+    ARM_F_STOP within 0.5 N.  Returns the launch counts."""
+    import subprocess
+    import tempfile
+    from pathlib import Path
+
+    from touchgs_torch.data.png import write_png
+    from touchgs_torch.native import arm as native_arm
+    from touchgs_torch.native import loader
+    from touchgs_torch.ops import rasterize_cuda as rc
+    from touchgs_torch.tools.write_scene import write_scene
+
+    t_phase = time.perf_counter()
+    missing = loader.missing_prerequisites()
+    if missing:
+        zero_launches()
+        with tempfile.TemporaryDirectory() as tmp:
+            png = Path(tmp) / "rgb.png"
+            write_png(png, np.random.default_rng(NATIVE_SEED).integers(
+                0, 256, (CLI_SIZE, CLI_SIZE, 3), dtype=np.uint8))
+            check(not loader.native_available() and torch.equal(
+                loader.decode_png(png), loader.decode_png_plain(png)),
+                  "native: decode_png does not fall back to data/png.py")
+            try:
+                loader.NativeLoader([png])
+            except RuntimeError:
+                pass
+            else:
+                check(False, "native: a NativeLoader without its library")
+        print(f"native: unavailable on this machine: {'; '.join(missing)}"
+              f"; decode_png falls back to data/png.py, NativeLoader raises;"
+              f" phase 4i {time.perf_counter() - t_phase:.1f} s; launches "
+              f"{rc.launches}")
+        return dict(rc.launches)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "scene"
+        write_scene(root, CLI_VIEWS, CLI_SIZE, CLI_SEEDS, "cuda")
+        zero_launches()
+        gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                             text=True, check=True).stdout.splitlines()[0]
+        t0 = time.perf_counter()
+        loader.build()
+        build_s = time.perf_counter() - t0
+        check(loader.native_available(),
+              f"native: the library does not load: {loader._error}")
+        print(f"native: built libtouchgs_native.so, tgs_capture and "
+              f"tgs_sync_capture in {build_s:.2f} s ({gxx})", flush=True)
+
+        paths = sorted(p for sub in ("imgs", "depth", "uncertainty")
+                       for p in (root / sub).glob("*.png"))
+        order = np.random.default_rng(NATIVE_SEED).permutation(len(paths))
+        ms = {}
+        t0 = time.perf_counter()
+        ref = {i: loader.decode_png_plain(paths[i]) for i in order}
+        ms["data/png.py"] = (time.perf_counter() - t0) * 1e3 / len(paths)
+        t0 = time.perf_counter()
+        got = {i: loader.decode_png(paths[i]) for i in order}
+        ms["decode_png"] = (time.perf_counter() - t0) * 1e3 / len(paths)
+        bad = [str(paths[i]) for i in order if not torch.equal(got[i], ref[i])]
+        t0 = time.perf_counter()
+        nl = loader.NativeLoader(paths, n_threads=NATIVE_THREADS)
+        for i in order:
+            nl.prefetch(int(i))
+        got = {i: nl.get(int(i)) for i in order}
+        ms["NativeLoader"] = (time.perf_counter() - t0) * 1e3 / len(paths)
+        nl.close()
+        bad += [str(paths[i]) for i in order
+                if not torch.equal(got[i], ref[i])]
+        check(not bad, f"native decodes differ from data/png.py's: {bad}")
+        kinds = sorted({tuple(t.shape) for t in ref.values()})
+        print(f"native: {len(paths)} PNGs of {kinds} equal data/png.py's "
+              f"exactly; ms an image " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in ms.items())
+              + f" (host times) on {card}", flush=True)
+
+        cap = native_capture(Path(tmp), dev)
+        print(f"native: capture {json.dumps(cap)} on {card}", flush=True)
+
+    r = subprocess.run([str(loader.tool("tgs_capture")), "--device",
+                        "/dev/null", "--count", "1"], capture_output=True,
+                       text=True, timeout=30)
+    check(r.returncode == 1 and "tgs_capture:" in r.stderr,
+          f"tgs_capture without a camera: exit {r.returncode}, "
+          f"{r.stderr[-200:]!r}")
+    t0 = time.perf_counter()
+    touch = guarded_touch(native_arm)
+    arm_s = time.perf_counter() - t0
+    fz = float(touch["force"][2])
+    check(touch["held"] and abs(fz - ARM_F_STOP) < 0.5,
+          f"arm: the guarded touch held {touch['held']} at {fz:.3f} N")
+    counts = dict(rc.launches)
+    print(f"native: tgs_capture without a camera exits 1 "
+          f"({r.stderr.strip()[:80]!r}); the guarded touch holds {fz:.3f} N "
+          f"after {ARM_STEPS} steps in {arm_s:.2f} s; phase 4i "
+          f"{time.perf_counter() - t_phase:.1f} s; launches {counts}")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3290,6 +3509,12 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         print(card(), flush=True)
         phase_parallel(card())
+        return 0
+    if sys.argv[1:] == ["--native"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(card(), flush=True)
+        phase_native(card())
         return 0
     if sys.argv[1:] == ["--sensor"]:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -3337,6 +3562,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     parallel = phase_parallel(card_name)
     torch.cuda.empty_cache()
+    native_counts = phase_native(card_name)
+    torch.cuda.empty_cache()
     path_counts, x, probe = phase_anatomy_path()
     kernels += [k4] + phase_anatomy(x, probe, loops)
     # a kernel of the training path counts its launches there, any other
@@ -3353,6 +3580,7 @@ def main() -> int:
             k["launches_nerf"] = nerf_counts[k["name"]]
             for path in ("viewer", "multiscene", "sharded"):
                 k[f"launches_{path}"] = parallel[path][k["name"]]
+            k["launches_native"] = native_counts[k["name"]]
             k["hard_scene"] = touch_kernels[k["name"]]
             # the largest error of K1-K3 against plain on each path's inputs
             k["parallel_max_abs_err"] = parallel["errors"]

@@ -1117,3 +1117,21 @@ def test_nccl_world_of_one(cuda_device):
         torch.testing.assert_close(getattr(full.params, g)[alive],
                                    getattr(ref.params, g)[alive], rtol=0,
                                    atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_sim_capture_through_sensor_loop_on_card(cuda_device, tmp_path):
+    """``chip_smoke.py`` phase 4i (c): the port-built ``tgs_sync_capture
+    --sim 1`` takes 8 frames, replayed through ``SensorLoop`` with the
+    compact nets on the card: every frame processed, ``poses.csv`` with a
+    row each, the last frame's depth and wrench within 1e-4 of the CPU's
+    range.  Skips where the native layer cannot be built."""
+    from chip_smoke import native_capture
+    from touchgs_torch.native import loader
+
+    missing = loader.missing_prerequisites()
+    if missing:
+        pytest.skip(f"the native layer needs {missing}")
+    out = native_capture(tmp_path, cuda_device, frames=8)
+    assert out["frames"] == 8
+    assert max(out["errors"].values()) <= 1e-4

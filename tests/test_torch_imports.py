@@ -250,3 +250,45 @@ def test_viewer_parallel_slice_imports_without_jax_or_pil():
         "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120, capture_output=True)
+
+
+NATIVE_SLICE = ("native/__init__.py", "native/loader.py", "native/arm.py")
+SUBPACKAGES = ("data", "models", "ops", "train", "utils", "vision", "eval",
+               "touch", "parallel", "viewer", "native")
+
+
+def test_native_slice_files_found():
+    for rel in NATIVE_SLICE:
+        assert ROOT / "touchgs_torch" / rel in FILES, rel
+
+
+def test_native_slice_imports_without_jax_or_pil(tmp_path):
+    """The native layer and every subpackage's re-exports import, and a PNG
+    decodes through ``native.decode_png``, in a process where ``jax``,
+    ``touchgs_tpu`` and ``PIL`` cannot be imported; importing builds
+    nothing."""
+    blocked = FORBIDDEN + ("PIL",)
+    mods = ["touchgs_torch." + rel[:-3].replace("/", ".").replace(
+        ".__init__", "") for rel in NATIVE_SLICE]
+    code = (
+        "import importlib, sys\n"
+        f"for name in list(sys.modules) + list({blocked!r}):\n"
+        f"    if name.split('.')[0] in {blocked!r}:\n"
+        "        sys.modules[name] = None\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"for pkg in {SUBPACKAGES!r}:\n"
+        "    importlib.import_module('touchgs_torch.' + pkg)\n"
+        "import numpy as np\n"
+        "from touchgs_torch.native import loader, decode_png\n"
+        "assert loader._lib is None and loader._error is None\n"
+        "from touchgs_torch.data.png import write_png\n"
+        f"p = {str(tmp_path / 'g.png')!r}\n"
+        "write_png(p, np.full((3, 5), 51, np.uint8))\n"
+        "out = decode_png(p)\n"
+        "assert out.shape == (3, 5, 1) and (out == 51 / 255).all()\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {blocked!r}"
+        " and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120, capture_output=True)

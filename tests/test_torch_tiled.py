@@ -10,6 +10,8 @@ tile's count), a k_tile that is not a multiple of 64 (with a padded last
 chunk), a tile count that is not a multiple of ``tile_block``, and a
 background.
 """
+from importlib import import_module
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,12 +23,14 @@ import touchgs_torch.config as tcfg
 from touchgs_tpu.ops.projection import project_gaussians as j_project
 from touchgs_tpu.ops.rasterize_tiled import rasterize_tiled as j_tiled
 from touchgs_tpu.ops.tiles import bin_gaussians as j_bin
-from touchgs_torch.ops import rasterize_tiled as rt
 from touchgs_torch.ops.projection import ProjectedGaussians
 from touchgs_torch.ops.rasterize_ref import rasterize_dense as t_dense
 from touchgs_torch.ops.tiles import TileBins, bin_gaussians as t_bin
 
 from tests.synthetic import look_at_camera, random_gaussians
+
+# the module: ``touchgs_torch.ops`` re-exports the function under its name
+rt = import_module("touchgs_torch.ops.rasterize_tiled")
 
 W, H, N = 96, 64, 300
 GRAD_NAMES = ("means2d", "conics", "colors", "opacities", "depths")

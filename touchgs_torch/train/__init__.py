@@ -1,1 +1,2 @@
 """Fused Adam and the training loop."""
+from touchgs_torch.train.trainer import Trainer, TrainState, make_train_step  # noqa: F401
