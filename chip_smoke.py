@@ -147,6 +147,17 @@ Phases (any failure raises, and the script exits nonzero with no result):
    kernels line: 0).  Where ``g++``, ``make``, zlib or libjpeg is missing
    it prints ``native: unavailable on this machine: ...``, checks the
    fallback of ``decode_png`` to ``data/png.py``, and goes on.
+4j. The port's benchmark (``phase_bench``): ``python3 bench_torch.py``
+   as a user runs it, in a process of its own on the card (5 warm-up and
+   40 timed steps of the bare train step at the flagship through K1-K3,
+   then its roofline report): exit 0, one JSON line with a rate above 0,
+   no note and the card named, its launch line showing K4 once and K1 with
+   rows, K2 and K3 at least 45 times each over its steps
+   (``launches_bench`` in the kernels line), its census with no lossy
+   tile; its stderr echoed and its headline beside the train phase's
+   median step.  Then ``touchgs_torch.tools.pair_stats`` on the card at
+   k_tile 1024, its total pairs equal to the flagship's binning, and the
+   pairs it keeps at the default k_tile 512.
 5. The profiling path: ``python -m touchgs_torch.tools.exp_kernel_anatomy
    --bf16``'s work (K4, the flagship's tiles at k_chunk 128, K2 with and
    without its exit, the four K5 ablations, the two K6 probe legs), with
@@ -171,7 +182,7 @@ Phases (any failure raises, and the script exits nonzero with no result):
    ``launches_sharded``, ``launches_native``, ``parallel_max_abs_err``
    (phase 4h's errors
    against plain) and, under ``hard_scene``, their errors, times and
-   bounds at both of its k_tiles),
+   bounds at both of its k_tiles; K1-K4 also ``launches_bench``),
    then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -191,7 +202,11 @@ phase 4h alone, and
 
     python3 chip_smoke.py --native
 
-phase 4i alone.
+phase 4i alone, and
+
+    python3 chip_smoke.py --bench
+
+phase 4j alone.
 
     python3 chip_smoke.py --ab OLD_CSRC
 
@@ -292,6 +307,8 @@ ARM_COM = [[0.0, 0.0, 0.2], [0.2, 0.0, 0.0], [0.15, 0.0, 0.0]]
 ARM_Q0 = [0.0, -0.4, 0.8]
 ARM_K, ARM_D = [600.0] * 3 + [30.0] * 3, [50.0] * 3 + [3.0] * 3
 ARM_STEPS, ARM_F_STOP = 12_000, 5.0
+# phase 4j: the time limit of bench_torch.py, run in a process of its own
+BENCH_TIMEOUT_S = 300
 
 
 def bound(nbytes: float, fp32_ops: float = 0.0,
@@ -557,24 +574,15 @@ def flagship_inputs(dev):
     """Projection, SH colours and binning of the flagship state on the
     card, with the packed attributes and the kernels' per-tile inputs."""
     from touchgs_torch.config import RasterizeConfig
-    from touchgs_torch.data.cameras import Camera
     from touchgs_torch.models.gaussians import init_random
-    from touchgs_torch.ops import rasterize_cuda as rc
     from touchgs_torch.ops.projection import project_gaussians, view_directions
     from touchgs_torch.ops.sh import eval_sh
+    from touchgs_torch.tools.pair_stats import bench_camera
 
     rcfg = RasterizeConfig(use_pallas=True)
     params = init_random(n=N_GAUSSIANS, capacity=CAPACITY, sh_degree=3,
                          device=dev)
-    c2w = np.eye(4, dtype=np.float32)
-    c2w[2, 3] = 2.5
-
-    def f32(v):
-        return torch.tensor(np.float32(v), device=dev)
-
-    cam = Camera(fx=f32(0.9 * WIDTH), fy=f32(0.9 * WIDTH), cx=f32(WIDTH / 2),
-                 cy=f32(HEIGHT / 2), c2w=torch.as_tensor(c2w, device=dev),
-                 width=WIDTH, height=HEIGHT)
+    cam = bench_camera(WIDTH, HEIGHT, dev)
     with torch.no_grad():
         opac = params.opacities()
         proj = project_gaussians(
@@ -3492,6 +3500,78 @@ def phase_native(card: str, dev=torch.device("cuda")) -> dict:
     return counts
 
 
+def phase_bench(card: str, train_step_ms: float | None = None,
+                dev=torch.device("cuda")) -> dict:
+    """Phase 4j: the port's benchmark as a user runs it, ``python3
+    bench_torch.py`` in a process of its own on the card (its launch
+    counters start at 0 there), with the kernels the earlier phases built
+    (with ``--bench`` it builds them itself).  It must exit 0 with exactly
+    one JSON line on stdout, a rate above 0, no note and the card named;
+    its launch line must show K4 once and K1 with rows, K2 and K3 each at
+    least WARMUP_STEPS + TIMED_STEPS times over its steps; its census must
+    be printed with no lossy tile.  Its stderr is echoed, the headline
+    beside the train phase's median step.  Then ``pair_stats`` on the card
+    at k_tile 1024, whose total pairs must equal what the flagship's
+    initial state bins to, and the pairs kept at
+    ``RasterizeConfig().k_tile``.  Returns the bench's launch counts over
+    its steps."""
+    import subprocess
+    from pathlib import Path
+
+    import bench_torch
+    from touchgs_torch.config import RasterizeConfig
+    from touchgs_torch.tools import pair_stats
+
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "bench_torch.py"],
+                       cwd=Path(__file__).resolve().parent,
+                       capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for line in r.stderr.splitlines():
+        print(f"  bench| {line}")
+    print(f"  bench| stdout: {r.stdout.strip()}", flush=True)
+    check(r.returncode == 0, f"bench_torch.py exit {r.returncode}")
+    lines = r.stdout.splitlines()
+    check(len(lines) == 1, f"bench_torch.py printed {len(lines)} lines")
+    h = json.loads(lines[0])
+    name = torch.cuda.get_device_name(0)
+    check(h["value"] > 0 and "note" not in h and h["device"] == name,
+          f"bench headline {h}, want a rate, no note and device {name!r}")
+    last = r.stderr.strip().splitlines()[-1]
+    check(last.startswith("launches: "), f"bench's last line {last!r}")
+    counts = json.loads(last[len("launches: "):])["steps"]
+    n_steps = bench_torch.WARMUP_STEPS + bench_torch.TIMED_STEPS
+    path = ("slot_rows", "composite_fwd", "composite_bwd")
+    check(counts["compile_smoke"] == 1
+          and all(counts[k] >= n_steps for k in path),
+          f"bench launches {counts}: want K4 once and K1 with rows, K2, K3 "
+          f"at least {n_steps} times each")
+    m = re.search(r"lossy-truncated tiles \(capped & unsaturated\): "
+                  r"(\d+)/(\d+)", r.stderr)
+    check(m is not None and int(m.group(1)) == 0,
+          f"bench census: {m.group(0) if m else 'not printed'}")
+    step = ("" if train_step_ms is None else
+            f"; the train phase's median step {train_step_ms:.3f} ms "
+            f"({1e3 / train_step_ms:.2f} it/s, a host read every step)")
+    windows = bench_torch.TIMED_STEPS // bench_torch.CHUNK
+    print(f"bench: {h['value']} it/s (median of {windows} windows of "
+          f"{bench_torch.CHUNK} steps, a host read a window){step}; the "
+          f"process {wall:.1f} s; launches over its steps {counts}; on "
+          f"{card}", flush=True)
+
+    want = int(flagship_inputs(dev)["bins"].tile_counts.sum())
+    ps = pair_stats.main(1024, dev, WIDTH, HEIGHT, N_GAUSSIANS, CAPACITY)
+    check(ps["total"] == want,
+          f"pair_stats: {ps['total']} pairs, the flagship bins to {want}")
+    k_tile = RasterizeConfig().k_tile
+    kept = int(np.minimum(ps["tile_counts"], k_tile).sum())
+    print(f"pair_stats: {want} pairs, as the flagship's initial state bins "
+          f"to; at the default k_tile {k_tile} it keeps {kept} "
+          f"({100 * kept / want:.2f}%); phase 4j "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3515,6 +3595,10 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         print(card(), flush=True)
         phase_native(card())
+        return 0
+    if sys.argv[1:] == ["--bench"]:
+        print(card(), flush=True)
+        phase_bench(card())
         return 0
     if sys.argv[1:] == ["--sensor"]:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -3564,6 +3648,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     native_counts = phase_native(card_name)
     torch.cuda.empty_cache()
+    bench_counts = phase_bench(card_name, step_ms)
+    torch.cuda.empty_cache()
     path_counts, x, probe = phase_anatomy_path()
     kernels += [k4] + phase_anatomy(x, probe, loops)
     # a kernel of the training path counts its launches there, any other
@@ -3584,6 +3670,8 @@ def main() -> int:
             k["hard_scene"] = touch_kernels[k["name"]]
             # the largest error of K1-K3 against plain on each path's inputs
             k["parallel_max_abs_err"] = parallel["errors"]
+        if k["name"] in bench_counts:  # K1-K4
+            k["launches_bench"] = bench_counts[k["name"]]
     print(f"chip_smoke: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1135,3 +1135,37 @@ def test_sim_capture_through_sensor_loop_on_card(cuda_device, tmp_path):
     out = native_capture(tmp_path, cuda_device, frames=8)
     assert out["frames"] == 8
     assert max(out["errors"].values()) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_tile", [128, 512])
+def test_bench_census_on_card_matches_plain(cuda_device, k_tile):
+    """``bench_torch.py``'s state at 96x64 (300 Gaussians in 1024) after 3
+    steps through K1-K3 on the card: the roofline report's census (K1 with
+    rows and K2 on the card) equals the census of the same bins and
+    attributes through the plain versions on the CPU, and so does every
+    tile's chunks_done."""
+    import bench_torch
+    from touchgs_torch.ops.tiles import TileBins
+
+    cfg, state, step, *batch = bench_torch.build_state_and_step(
+        cuda_device, W, H, N, 1024)
+    assert cfg.model.rasterize.use_pallas
+    for _ in range(3):
+        state, metrics = step(state, *batch, 3)
+    assert np.isfinite(float(metrics["loss"]))
+    rcfg = dataclasses.replace(cfg.model.rasterize, k_tile=k_tile)
+    cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+        cfg.model, rasterize=rcfg))
+    before = dict(rc.launches)
+    got = bench_torch.census(cfg, state, batch[0])
+    assert rc.launches["slot_rows"] == before["slot_rows"] + 1
+    assert rc.launches["composite_fwd"] == before["composite_fwd"] + 1
+    bins = got["x"]["bins"]
+    cpu_bins = TileBins(*(t.cpu() for t in bins[:3]), bins.n_tiles_x,
+                        bins.n_tiles_y)
+    want = bench_torch.tile_census(rcfg, cpu_bins,
+                                   got["x"]["k1_args"][0].cpu())
+    keys = ("total", "kept", "scanned", "lossy", "distinct")
+    assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
+    assert torch.equal(got["x"]["done"].cpu(), want["x"]["done"])

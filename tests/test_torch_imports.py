@@ -1,5 +1,5 @@
 """The port's import rule: no module of ``touchgs_torch/``, nor
-``chip_smoke.py``, imports JAX, flax, optax, orbax or the JAX package, not
+``chip_smoke.py`` or ``bench_torch.py``, imports JAX, flax, optax, orbax or the JAX package, not
 even lazily inside a function, and PIL only in ``data/png.py``'s lazy path for files
 that are not plain PNGs.  Each file is parsed with ``ast``; only the tests
 import both packages."""
@@ -12,7 +12,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "touchgs_tpu")
-FILES = sorted(ROOT.glob("touchgs_torch/**/*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(ROOT.glob("touchgs_torch/**/*.py")) + [
+    ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
 
 
 def _imports(tree: ast.AST):
@@ -287,6 +288,38 @@ def test_native_slice_imports_without_jax_or_pil(tmp_path):
         "write_png(p, np.full((3, 5), 51, np.uint8))\n"
         "out = decode_png(p)\n"
         "assert out.shape == (3, 5, 1) and (out == 51 / 255).all()\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {blocked!r}"
+        " and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                   timeout=120, capture_output=True)
+
+
+def test_bench_files_found():
+    assert ROOT / "bench_torch.py" in FILES
+    assert ROOT / "touchgs_torch" / "tools" / "pair_stats.py" in FILES
+
+
+def test_bench_imports_without_jax():
+    """``bench_torch.py`` builds its state and takes a step, its census
+    runs and ``pair_stats`` prints its statistics, on the CPU at a tiny
+    size, in a process where ``jax``, ``touchgs_tpu`` and ``PIL`` cannot be
+    imported (``bench_torch`` imports the package lazily, as ``bench.py``
+    does)."""
+    blocked = FORBIDDEN + ("PIL",)
+    code = (
+        "import sys\n"
+        f"for name in list(sys.modules) + list({blocked!r}):\n"
+        f"    if name.split('.')[0] in {blocked!r}:\n"
+        "        sys.modules[name] = None\n"
+        "import bench_torch as b\n"
+        "from touchgs_torch.tools import pair_stats\n"
+        "cfg, state, step, cam, *batch = b.build_state_and_step("
+        "'cpu', 32, 32, 50, 128)\n"
+        "state, m = step(state, cam, *batch, 3)\n"
+        "assert float(m['loss']) > 0\n"
+        "assert b.census(cfg, state, cam)['total'] > 0\n"
+        "assert pair_stats.main(64, 'cpu', 32, 32, 50, 128)['total'] > 0\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {blocked!r}"
         " and sys.modules[m] is not None]\n"
         "assert not bad, bad\n")

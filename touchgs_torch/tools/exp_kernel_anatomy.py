@@ -26,13 +26,13 @@ import numpy as np
 import torch
 
 from touchgs_torch.config import RasterizeConfig
-from touchgs_torch.data.cameras import Camera
 from touchgs_torch.models.gaussians import init_random
 from touchgs_torch.ops import anatomy, cuda_build
 from touchgs_torch.ops import rasterize_cuda as rc
 from touchgs_torch.ops import rasterize_plain as plain
 from touchgs_torch.ops.projection import project_gaussians
 from touchgs_torch.ops.tiles import bin_gaussians
+from touchgs_torch.tools.pair_stats import bench_camera
 from touchgs_torch.utils.profiling import card, measure
 
 WIDTH = HEIGHT = 800
@@ -63,16 +63,7 @@ def anatomy_inputs(device="cuda", width: int = WIDTH, height: int = HEIGHT,
     as ``tools/exp_kernel_anatomy.py:39-71`` makes them."""
     rcfg = RasterizeConfig(use_pallas=True)
     params = init_random(n=n, capacity=capacity, sh_degree=3, device=device)
-    c2w = np.eye(4, dtype=np.float32)
-    c2w[2, 3] = 2.5
-
-    def f32(v):
-        return torch.tensor(np.float32(v), device=device)
-
-    cam = Camera(fx=f32(0.9 * width), fy=f32(0.9 * width),
-                 cx=f32(width / 2), cy=f32(height / 2),
-                 c2w=torch.as_tensor(c2w, device=device), width=width,
-                 height=height)
+    cam = bench_camera(width, height, device)
     k_tile = rcfg.k_tile
     with torch.no_grad():
         opac = params.opacities()

@@ -25,7 +25,6 @@ import numpy as np
 import torch
 
 from touchgs_torch.config import ModelConfig, RasterizeConfig, TrainConfig
-from touchgs_torch.data.cameras import Camera
 from touchgs_torch.models.densify import DensifyState
 from touchgs_torch.models.gaussians import init_random
 from touchgs_torch.models.splatfacto import compute_losses, render
@@ -34,6 +33,7 @@ from touchgs_torch.ops.rasterize_cuda import _pack_attrs, rasterize_cuda
 from touchgs_torch.ops.sh import eval_sh
 from touchgs_torch.ops.ssim import ssim_cm
 from touchgs_torch.ops.tiles import bin_gaussians
+from touchgs_torch.tools.pair_stats import bench_camera
 from touchgs_torch.train.optim import PARAM_GROUPS, FusedAdam
 from touchgs_torch.train.trainer import TrainState, make_train_step
 from touchgs_torch.utils.profiling import card, measure
@@ -51,16 +51,7 @@ def build_stages(device="cuda", width: int = WIDTH, height: int = HEIGHT,
     cfg = TrainConfig(model=ModelConfig(max_gaussians=capacity, sh_degree=3,
                                         rasterize=rcfg))
     params = init_random(n=n, capacity=capacity, sh_degree=3, device=device)
-    c2w = np.eye(4, dtype=np.float32)
-    c2w[2, 3] = 2.5
-
-    def f32(v):
-        return torch.tensor(np.float32(v), device=device)
-
-    cam = Camera(fx=f32(0.9 * width), fy=f32(0.9 * width),
-                 cx=f32(width / 2), cy=f32(height / 2),
-                 c2w=torch.as_tensor(c2w, device=device), width=width,
-                 height=height)
+    cam = bench_camera(width, height, device)
 
     def proj_of(p, means=None):
         return project_gaussians(
