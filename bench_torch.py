@@ -41,10 +41,13 @@ Where it differs from ``bench.py``:
     {...}}``.
 
 On the card the step runs the tile kernels K1 (with rows), K2 and K3
-(``use_pallas=True``); on the CPU the scan path, as ``bench.py`` picks
-Pallas on a TPU only.  K4 (``cuda_build.compile_smoke``) is the
-build-and-launch check that runs first; the kernel build cache of
-``ops/cuda_build.py`` plays the part of ``bench.py``'s XLA compile cache.
+(``use_pallas=True``) as a CUDA graph (``train/graphs.py``), as
+``bench.py`` times a jitted step; on the CPU the scan path, eagerly, as
+``bench.py`` picks Pallas on a TPU only.  K4 (``cuda_build.compile_smoke``)
+is the build-and-launch check that runs first; the kernel build cache of
+``ops/cuda_build.py`` plays the part of ``bench.py``'s XLA compile cache,
+and the first step's time, printed as ``first step (capture)`` (the
+warm-up, the capture and one replay), that of its first compile.
 """
 from __future__ import annotations
 
@@ -428,10 +431,13 @@ def main(argv=None) -> int:
         device, WIDTH, HEIGHT, N_GAUSSIANS, CAPACITY)
     log(f"state and step built: {time.time() - t0:.1f}s")
 
+    # on the card the first step warms up, captures the step as a CUDA
+    # graph and replays it once (bench.py:309 compiles it there)
     t0 = time.time()
     state, metrics = step(state, cam, image, depth, unc, SH_DEGREE)
-    log(f"first step: {time.time()-t0:.1f}s "
-        f"loss={float(metrics['loss']):.4f}")
+    loss = float(metrics["loss"])
+    label = "first step (capture)" if device.type == "cuda" else "first step"
+    log(f"{label}: {time.time() - t0:.3f} s loss={loss:.4f}")
     set_headline(0.0, "built_but_untimed")
 
     for _ in range(WARMUP_STEPS - 1):

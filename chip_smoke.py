@@ -29,9 +29,10 @@ Phases (any failure raises, and the script exits nonzero with no result):
    tile kernels against the dense oracle.
 3. The training path: ``Trainer(scene, cfg).run`` on an in-memory 4-view
    800x800 scene seeded with 100k points (capacity 131072), 5 warm-up and
-   20 timed steps, with the launch counters set to 0 just before and read
-   just after (25 launches of K1 with rows, K2 and K3, none of K1's lists
-   alone); then one lossless ``Trainer.render_view``.
+   20 timed steps of the graphed step, with the launch counters set to 0
+   just before and read just after (25 launches of K1 with rows, K2 and
+   K3, none of K1's lists alone: each replay adds its capture's counts);
+   then one lossless ``Trainer.render_view``.
 4. Where the step's device time goes: three more steps under
    torch.profiler, the kernels by device time and the busy share.
 4a. The default render path, the scan path (``use_pallas=False``, torch
@@ -158,6 +159,22 @@ Phases (any failure raises, and the script exits nonzero with no result):
    median step.  Then ``touchgs_torch.tools.pair_stats`` on the card at
    k_tile 1024, its total pairs equal to the flagship's binning, and the
    pairs it keeps at the default k_tile 512.
+4k. The compiled step (``train/graphs.py``; ``make_train_step`` returns
+   it on the card, so phases 3, 4, 4d and 4j already run it): (a) right
+   after phase 4, from two copies of the train phase's state,
+   GRAPH_STEPS steps with the plain step (``__wrapped__``) and as many
+   as a CUDA graph on the same views at SH degree 3, each step's loss and
+   PSNR within rtol 1e-3, one capture, K1 with rows, K2 and K3 exactly
+   GRAPH_STEPS launches each on each side (counters set to 0 just before
+   each; the warm-up's counted apart), the parameter gap, the capture's
+   time and the graph pool's size; (c) the two timed in turns (eager,
+   graphed, graphed, eager) and profiled: median steps, the busy share
+   and the device operations a step.  (b) after phase 4d, ``Trainer.run``
+   on 4d's scene, graphed and eager, GRAPH_TRAIN_STEPS steps on a
+   schedule with refines, an opacity reset, two SH-degree steps and a
+   k_tile escalation from 128: eval PSNR within 0.1 dB, alive within 1%,
+   the captures bounded (``launches_graph`` and
+   ``launches_graph_trainer`` in the kernels line).
 5. The profiling path: ``python -m touchgs_torch.tools.exp_kernel_anatomy
    --bf16``'s work (K4, the flagship's tiles at k_chunk 128, K2 with and
    without its exit, the four K5 ablations, the two K6 probe legs), with
@@ -179,7 +196,8 @@ Phases (any failure raises, and the script exits nonzero with no result):
    the training path's kernels also carry ``launches_hard_scene``,
    ``launches_cli``, ``launches_pipeline``, ``launches_sensor``,
    ``launches_nerf``, ``launches_viewer``, ``launches_multiscene``,
-   ``launches_sharded``, ``launches_native``, ``parallel_max_abs_err``
+   ``launches_sharded``, ``launches_native``, ``launches_graph``,
+   ``launches_graph_trainer``, ``parallel_max_abs_err``
    (phase 4h's errors
    against plain) and, under ``hard_scene``, their errors, times and
    bounds at both of its k_tiles; K1-K4 also ``launches_bench``),
@@ -206,7 +224,11 @@ phase 4i alone, and
 
     python3 chip_smoke.py --bench
 
-phase 4j alone.
+phase 4j alone, and
+
+    python3 chip_smoke.py --graph
+
+phase 4k alone (its (b) on a scene written as phase 4d writes it).
 
     python3 chip_smoke.py --ab OLD_CSRC
 
@@ -219,6 +241,7 @@ shapes (``phase_ab``), K5 on the anatomy's tiles and K6 on the probe's rows
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import sys
@@ -309,6 +332,17 @@ ARM_K, ARM_D = [600.0] * 3 + [30.0] * 3, [50.0] * 3 + [3.0] * 3
 ARM_STEPS, ARM_F_STOP = 12_000, 5.0
 # phase 4j: the time limit of bench_torch.py, run in a process of its own
 BENCH_TIMEOUT_S = 300
+# phase 4k, the graphed step: (a) eager and graphed steps from one flagship
+# state at the full SH degree, then (c) GRAPH_TIMED steps a turn; (b) a
+# Trainer on phase 4d's scene, graphed and eager, on a schedule that
+# refines at 50, 100, ..., 250 (densifying at 100 and 150), resets the
+# opacities at 200, raises the active SH degree at 100 and 200, and starts
+# at k_tile 128 so that the truncation guard escalates
+GRAPH_STEPS, GRAPH_TIMED, GRAPH_SH, GRAPH_SEED = 25, 20, 3, 7
+GRAPH_TRAIN_STEPS, GRAPH_K_TILE, GRAPH_LOG_EVERY = 300, 128, 10
+GRAPH_DENSIFY = dict(warmup_steps=50, refine_every=50,
+                     reset_opacity_every=200)
+GRAPH_SH_INTERVAL = 100
 
 
 def bound(nbytes: float, fp32_ops: float = 0.0,
@@ -1078,7 +1112,8 @@ def phase_scan(dev, card: str, kernel_step_ms: float) -> None:
     check(all(np.isfinite(losses)), "scan path: non-finite loss")
     check(all("lossy_tiles" not in m for m in trainer.history),
           "the scan path reported lossy_tiles")
-    phase_profile(trainer, SCAN_PROFILED, "scan path profile")
+    phase_profile(lambda: trainer.run(trainer.state.step + SCAN_PROFILED),
+                  SCAN_PROFILED, "scan path profile")
 
 
 def phase_demo(card: str) -> None:
@@ -1357,7 +1392,7 @@ def phase_touch(card: str) -> dict:
     return counts
 
 
-def phase_cli(card: str) -> dict:
+def phase_cli(card: str) -> tuple:
     """The user's entry point, ``python -m touchgs_torch.cli``, on a scene
     directory written at full width (``tools/write_scene.py``: the scale
     demo's GT, CLI_VIEWS views of CLI_SIZE², uint16-mm depth and
@@ -1370,7 +1405,8 @@ def phase_cli(card: str) -> dict:
     ``.ply`` re-rendered through K1-K3 matches the trainer's render of an
     eval view within rgb/acc 3e-5 and depth 3e-4; ``train
     --camera-optimizer SO3xR3`` stays finite.  Returns the launch counts of
-    the CLI_STEPS-step train."""
+    the CLI_STEPS-step train and the loaded scene (phase 4k (b) trains on
+    it)."""
     import tempfile
     from pathlib import Path
 
@@ -1517,7 +1553,7 @@ def phase_cli(card: str) -> dict:
               f"cli SO3xR3 launches {pose_counts}")
         del posed
     print(f"cli: times {json.dumps(times)} on {card}")
-    return counts
+    return counts, scene
 
 
 def vision_net(net: str, path):
@@ -2345,11 +2381,13 @@ def phase_nerf(card: str, dev=torch.device("cuda")) -> dict:
     return counts
 
 
-def phase_profile(trainer, steps: int = PROFILE_STEPS,
-                  label: str = "profile") -> None:
-    """Device time by kernel over a few more training steps, from
-    torch.profiler, and the device's busy share of their wall time (the
-    profiler slows the host, so the share under it is a lower bound)."""
+def phase_profile(run, steps: int = PROFILE_STEPS,
+                  label: str = "profile") -> dict:
+    """Device time by kernel over ``run()``, which takes ``steps`` more
+    training steps, from torch.profiler, and the device's busy share of
+    their wall time (the profiler slows the host, so the share under it is
+    a lower bound).  Returns the busy and wall ms a step and the device
+    operations a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2357,7 +2395,7 @@ def phase_profile(trainer, steps: int = PROFILE_STEPS,
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.run(trainer.state.step + steps)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -2373,6 +2411,8 @@ def phase_profile(trainer, steps: int = PROFILE_STEPS,
         ms = e.device_time_total / 1e3 / steps
         print(f"  {ms:8.3f} ms/step {100 * ms * steps / busy_ms:5.1f}%  "
               f"{e.count / steps:5.1f}x  {e.key[:90]}")
+    return dict(busy_ms=busy_ms / steps, wall_ms=wall_ms / steps,
+                ops=per_step)
 
 
 def phase_anatomy_path() -> tuple:
@@ -3572,6 +3612,253 @@ def phase_bench(card: str, train_step_ms: float | None = None,
     return counts
 
 
+def pool_bytes(pool) -> int:
+    """Bytes the caching allocator holds in the CUDA-graph memory pool
+    ``pool`` (its segments in ``torch.cuda.memory_snapshot``)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
+def alive_gap(a, b) -> float:
+    """The largest |a − b| over the parameter groups' live slots of two
+    ``GaussianParams`` with one alive mask (the dead slots' quaternions are
+    zero, and their updates not finite)."""
+    from touchgs_torch.train.optim import PARAM_GROUPS
+
+    check(torch.equal(a.alive, b.alive), "alive masks differ")
+    return max(float((getattr(a, g)[a.alive] - getattr(b, g)[a.alive])
+                     .abs().max()) for g in PARAM_GROUPS
+               if getattr(a, g)[a.alive].numel())
+
+
+def phase_graph_step(card: str, trainer) -> dict:
+    """Phase 4k (a) and (c), the graphed step (``train/graphs.py``) on the
+    flagship: from two copies of ``trainer``'s state, GRAPH_STEPS steps
+    with the plain step (``__wrapped__``) and as many with the graphed
+    step, on the same views at SH degree GRAPH_SH, the launch counters set
+    to 0 just before each and read just after: each step's loss and PSNR
+    within rtol 1e-3, one capture, K1 with rows, K2 and K3 exactly
+    GRAPH_STEPS launches each on the graphed side (the warm-up's counted
+    apart); the largest parameter gap printed.  The first graphed step's
+    time (warm-up, capture and a replay) and the graph pool's bytes.  Then
+    (c) the steps timed in turns, eager, graphed, graphed, eager, each
+    ending in a synchronize, and PROFILE_STEPS of each under
+    torch.profiler.  Returns the graphed side's launch counts."""
+    from touchgs_torch.ops import rasterize_cuda as rc
+    from touchgs_torch.train.graphs import WARMUP_ITERS, GraphedStep
+    from touchgs_torch.train.trainer import make_train_step
+
+    t_phase = time.perf_counter()
+    events: dict = {}
+    step = make_train_step(trainer.cfg, trainer.optimizer, events=events)
+    check(isinstance(step, GraphedStep),
+          f"make_train_step returned {type(step).__name__} on the card")
+    fns = {"eager": step.__wrapped__, "graph": step}
+    states = {k: clone_state(trainer.state) for k in fns}
+    rng = np.random.default_rng(GRAPH_SEED)
+    views = [int(rng.choice(trainer.scene.i_train))
+             for _ in range(GRAPH_STEPS)]
+    logs, counts, first_s = {}, {}, {}
+    warm0 = dict(rc.launches_warmup)
+    for name, fn in fns.items():
+        zero_launches()
+        state, log = states[name], []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i, v in enumerate(views):
+            t0 = time.perf_counter()
+            state, m = fn(state, *trainer._batch(v), GRAPH_SH)
+            log.append((float(m["loss"]), float(m["psnr"])))
+            if i == 0:
+                first_s[name] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        counts[name] = dict(rc.launches)
+        logs[name] = np.array(log)
+        states[name] = state
+        if name == "graph":
+            pool = pool_bytes(step.pool)
+            peak = torch.cuda.max_memory_allocated()
+    warm = {k: rc.launches_warmup[k] - warm0[k] for k in warm0}
+    rel = np.abs(logs["graph"] - logs["eager"]) / np.abs(logs["eager"])
+    gap = alive_gap(states["graph"].params, states["eager"].params)
+    print(f"graph: {GRAPH_STEPS} steps at SH {GRAPH_SH}: loss "
+          f"{logs['eager'][0, 0]:.6f} -> {logs['eager'][-1, 0]:.6f} eager, "
+          f"{logs['graph'][-1, 0]:.6f} graphed; largest relative gap loss "
+          f"{rel[:, 0].max():.3e}, psnr {rel[:, 1].max():.3e}; final "
+          f"parameters at most {gap:.3e} apart (live slots)")
+    print(f"graph: first step {first_s['graph']:.3f} s graphed ("
+          f"{WARMUP_ITERS} warm-up steps on a clone, the capture and a "
+          f"replay) against {first_s['eager']:.3f} s eager; captures "
+          f"{events['capture']}; graph pool {pool / 2**20:.1f} MiB, peak "
+          f"allocated {peak / 2**30:.2f} GiB; launches {counts['graph']}, "
+          f"warm-up {warm}")
+    check(bool(np.isfinite(logs["graph"]).all()) and rel.max() <= 1e-3,
+          f"graphed against eager: relative gap {rel.max():.3e}")
+    want = {k: 0 if k == "slot_lists" else GRAPH_STEPS for k in rc.launches}
+    check(counts == {"eager": want, "graph": want},
+          f"graph launches {counts}, want {want} on each side")
+    check(events["capture"] == 1, f"captures {events['capture']}, want 1")
+    check(warm == {k: 0 if k == "slot_lists" else WARMUP_ITERS
+                   for k in warm}, f"warm-up launches {warm}")
+
+    times: dict = {"eager": [], "graph": []}
+    for name in ("eager", "graph", "graph", "eager"):
+        state = states[name]
+        for i in range(GRAPH_TIMED):
+            batch = trainer._batch(views[i % len(views)])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, _ = fns[name](state, *batch, GRAPH_SH)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+        states[name] = state
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"graph: median step {med['graph']:.3f} ms graphed, "
+          f"{med['eager']:.3f} eager ({med['eager'] / med['graph']:.2f}x), "
+          f"{2 * GRAPH_TIMED} steps each in turns (eager, graphed, graphed, "
+          f"eager), each ending in a synchronize; quartiles graphed "
+          f"{np.percentile(times['graph'], 25):.3f}/"
+          f"{np.percentile(times['graph'], 75):.3f}, eager "
+          f"{np.percentile(times['eager'], 25):.3f}/"
+          f"{np.percentile(times['eager'], 75):.3f} ms; on {card}")
+    prof = {}
+    for name, fn in fns.items():
+        box = [states[name]]
+
+        def run():
+            for i in range(PROFILE_STEPS):
+                box[0], _ = fn(box[0], *trainer._batch(views[i]), GRAPH_SH)
+
+        prof[name] = phase_profile(run, PROFILE_STEPS, f"graph: {name}")
+    print(f"graph: under the profiler the graphed step keeps the device "
+          f"busy {prof['graph']['busy_ms']:.3f} of "
+          f"{prof['graph']['wall_ms']:.3f} ms "
+          f"({100 * prof['graph']['busy_ms'] / prof['graph']['wall_ms']:.1f}"
+          f"%), {prof['graph']['ops']:.0f} device operations a step; eager "
+          f"{prof['eager']['busy_ms']:.3f} of {prof['eager']['wall_ms']:.3f}"
+          f" ms, {prof['eager']['ops']:.0f}; phase 4k (a, c) "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return counts["graph"]
+
+
+def graph_scene():
+    """Phase 4d's scene (``write_scene`` at CLI_VIEWS x CLI_SIZE² with
+    CLI_SEEDS seeds, loaded with the ``bunny_blender`` split), for phase
+    4k (b) when it runs alone."""
+    import tempfile
+    from pathlib import Path
+
+    from touchgs_torch.config import SCENE_PRESETS
+    from touchgs_torch.data.scene import load_scene
+    from touchgs_torch.tools.write_scene import write_scene
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_scene(Path(tmp), CLI_VIEWS, CLI_SIZE, CLI_SEEDS, "cuda")
+        return load_scene(Path(tmp), train_split_fraction=SCENE_PRESETS[
+            "bunny_blender"].train_split_fraction)
+
+
+@contextlib.contextmanager
+def plain_steps():
+    """``make_train_step`` returning the plain step (the graphed step's
+    ``__wrapped__``) while the block runs, for the eager arm of phase 4k
+    (b): the trainer builds its steps through it."""
+    from touchgs_torch.train import trainer as tr
+
+    real = tr.make_train_step
+
+    def plain(*args, **kw):
+        step = real(*args, **kw)
+        return getattr(step, "__wrapped__", step)
+
+    tr.make_train_step = plain
+    try:
+        yield
+    finally:
+        tr.make_train_step = real
+
+
+def phase_graph_trainer(card: str, scene) -> dict:
+    """Phase 4k (b): ``Trainer.run`` on phase 4d's scene for
+    GRAPH_TRAIN_STEPS steps, graphed and then eager (``plain_steps``) from
+    the same seeds, the launch counters set to 0 just before each: both
+    runs refine at least twice, reset the opacities, raise the active SH
+    degree and escalate k_tile from GRAPH_K_TILE; K1 with rows, K2 and K3
+    exactly GRAPH_TRAIN_STEPS launches each; the graphed run's captures
+    at most its SH degrees + escalations + growths + 1, the eager run's 0;
+    the final mean PSNR of the eval views (lossless renders) within 0.1 dB
+    and the alive counts within 1%.  Returns the graphed run's counts."""
+    from touchgs_torch.config import (SCENE_PRESETS, DensifyConfig,
+                                      ModelConfig, RasterizeConfig,
+                                      TrainConfig)
+    from touchgs_torch.ops import rasterize_cuda as rc
+    from touchgs_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    cfg = TrainConfig(
+        model=ModelConfig(max_gaussians=CAPACITY, sh_degree=3,
+                          rasterize=RasterizeConfig(use_pallas=True,
+                                                    k_tile=GRAPH_K_TILE)),
+        depth=SCENE_PRESETS["bunny_blender"].depth,
+        densify=DensifyConfig(**GRAPH_DENSIFY),
+        sh_degree_interval=GRAPH_SH_INTERVAL, log_every=GRAPH_LOG_EVERY,
+        view_cache_bytes=1 << 30)
+    views = scene.i_eval if len(scene.i_eval) else scene.i_train
+    runs = {}
+    for name in ("graph", "eager"):
+        with (plain_steps() if name == "eager" else contextlib.nullcontext()):
+            trainer = Trainer(scene, cfg)
+            zero_launches()
+            t0 = time.perf_counter()
+            trainer.run(GRAPH_TRAIN_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = dict(rc.launches)
+        psnrs = []
+        for v in views:
+            out = trainer.render_view(int(v))
+            mse = float(((out.rgb - torch.as_tensor(
+                scene.images[v], device=out.rgb.device)) ** 2).mean())
+            psnrs.append(-10.0 * np.log10(max(mse, 1e-10)))
+        h = trainer.history
+        runs[name] = dict(
+            psnr=float(np.mean(psnrs)), alive=int(trainer.state.params.num_alive),
+            events=dict(trainer.events), counts=counts, wall_s=wall,
+            it_s=h[-1]["iters_per_sec"], k_tile=trainer._k_tile,
+            escalations=[m["k_tile_escalated_to"] for m in h
+                         if "k_tile_escalated_to" in m],
+            sh=trainer.active_sh_degree(GRAPH_TRAIN_STEPS - 1),
+            loss=(h[0]["loss"], h[-1]["loss"]))
+        print(f"graph trainer ({name}): {json.dumps(runs[name])}",
+              flush=True)
+        del trainer
+        torch.cuda.empty_cache()
+    g, e = runs["graph"], runs["eager"]
+    want = {k: 0 if k == "slot_lists" else GRAPH_TRAIN_STEPS
+            for k in rc.launches}
+    for name, r in runs.items():
+        ev = r["events"]
+        check(ev["refine"] >= 2 and ev["reset_opacity"] >= 1 and r["sh"] > 0
+              and r["escalations"] and r["counts"] == want,
+              f"graph trainer ({name}): schedule {ev}, SH {r['sh']}, "
+              f"escalations {r['escalations']}, launches {r['counts']}")
+    bound = g["sh"] + 1 + len(g["escalations"]) + g["events"]["grow"] + 1
+    check(g["events"]["capture"] <= bound and e["events"]["capture"] == 0,
+          f"graph trainer: captures {g['events']['capture']} (at most "
+          f"{bound}), eager {e['events']['capture']}")
+    check(abs(g["psnr"] - e["psnr"]) <= 0.1
+          and abs(g["alive"] - e["alive"]) <= 0.01 * e["alive"],
+          f"graph trainer: psnr {g['psnr']:.4f} against {e['psnr']:.4f}, "
+          f"alive {g['alive']} against {e['alive']}")
+    print(f"graph trainer: {GRAPH_TRAIN_STEPS} steps, eval psnr "
+          f"{g['psnr']:.4f} graphed against {e['psnr']:.4f} eager, alive "
+          f"{g['alive']} against {e['alive']}, captures "
+          f"{g['events']['capture']} (bound {bound}), {g['it_s']:.2f} it/s "
+          f"against {e['it_s']:.2f}; phase 4k (b) "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    return g["counts"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3600,6 +3887,16 @@ def main() -> int:
         print(card(), flush=True)
         phase_bench(card())
         return 0
+    if sys.argv[1:] == ["--graph"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(card(), flush=True)
+        from touchgs_torch.train.trainer import Trainer
+
+        phase_graph_step(card(), Trainer(make_scene(), flagship_cfg()))
+        torch.cuda.empty_cache()
+        phase_graph_trainer(card(), graph_scene())
+        return 0
     if sys.argv[1:] == ["--sensor"]:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -3626,7 +3923,8 @@ def main() -> int:
     kernels = phase_kernels(dev)
     phase_reference(dev)
     counts, trainer, step_ms = phase_train(card_name)
-    phase_profile(trainer)
+    phase_profile(lambda: trainer.run(trainer.state.step + PROFILE_STEPS))
+    graph_counts = phase_graph_step(card_name, trainer)
     del trainer
     torch.cuda.empty_cache()
     phase_scan(dev, card_name, step_ms)
@@ -3637,7 +3935,10 @@ def main() -> int:
     touch_kernels = phase_touch_kernels(dev)
     touch_counts = phase_touch(card_name)
     torch.cuda.empty_cache()
-    cli_counts = phase_cli(card_name)
+    cli_counts, cli_scene = phase_cli(card_name)
+    torch.cuda.empty_cache()
+    graph_trainer_counts = phase_graph_trainer(card_name, cli_scene)
+    del cli_scene
     torch.cuda.empty_cache()
     pipeline_counts = phase_vision(card_name)
     torch.cuda.empty_cache()
@@ -3667,6 +3968,8 @@ def main() -> int:
             for path in ("viewer", "multiscene", "sharded"):
                 k[f"launches_{path}"] = parallel[path][k["name"]]
             k["launches_native"] = native_counts[k["name"]]
+            k["launches_graph"] = graph_counts[k["name"]]
+            k["launches_graph_trainer"] = graph_trainer_counts[k["name"]]
             k["hard_scene"] = touch_kernels[k["name"]]
             # the largest error of K1-K3 against plain on each path's inputs
             k["parallel_max_abs_err"] = parallel["errors"]

@@ -28,7 +28,11 @@ from touchgs_torch.ops.projection import project_gaussians
 from touchgs_torch.ops.rasterize_ref import rasterize_dense
 from touchgs_torch.ops.tiles import bin_gaussians
 from touchgs_torch.tools.exp_kernel_anatomy import probe_inputs
-from touchgs_torch.train.trainer import Trainer
+from touchgs_torch.train import graphs
+from touchgs_torch.train.graphs import GraphedStep
+from touchgs_torch.train.trainer import (Trainer, grow_state,
+                                         make_train_step, refine_state,
+                                         reset_opacity_state)
 
 W, H = 96, 64           # 3x2 tiles of 32x32
 K_TILE, K_CHUNK = 512, 64
@@ -294,8 +298,11 @@ def test_trainer_sh_degree_0_on_card(cuda_device):
         assert tuple(p.sh_rest.shape) == (1024, 0, 3)
         assert tuple(trainer.state.opt_state.mu["sh_rest"].shape) == (
             1024, 0, 3)
-        assert trainer.events == {"grow": 1, "refine": 3,
-                                  "reset_opacity": 0}, trainer.events
+        # on the card the graphed step captures at step 0 and after the
+        # growth (new tensors); the refines write in place and cost none
+        assert trainer.events == {
+            "grow": 1, "refine": 3, "reset_opacity": 0,
+            "capture": 2 if device == "cuda" else 0}, trainer.events
         assert int(p.num_alive) > N                 # the refine densified
         assert all(np.isfinite(m["loss"]) for m in log)
         if device == "cuda":
@@ -1169,3 +1176,117 @@ def test_bench_census_on_card_matches_plain(cuda_device, k_tile):
     keys = ("total", "kept", "scanned", "lossy", "distinct")
     assert {k: got[k] for k in keys} == {k: want[k] for k in keys}
     assert torch.equal(got["x"]["done"].cpu(), want["x"]["done"])
+
+
+def _graph_trainer() -> Trainer:
+    trainer = Trainer(card_scene(), _card_cfg())
+    assert isinstance(trainer.train_step, GraphedStep)
+    return trainer
+
+
+def _counts_since(before: dict, now: dict) -> dict:
+    return {k: now[k] - before[k] for k in now}
+
+
+@pytest.mark.cuda
+def test_graphed_step_matches_eager(cuda_device):
+    """5 steps of the graphed step against 5 of its ``__wrapped__`` from
+    copies of one state, on the same views: loss and PSNR within rtol
+    1e-3.  One capture; over the replays K1 with rows, K2 and K3 count
+    exactly 5 launches each, as the eager steps do, and the warm-up's
+    launches (``WARMUP_ITERS`` steps on a clone) are counted apart."""
+    import copy
+
+    trainer = _graph_trainer()
+    step = trainer.train_step
+    logs, counts = {}, {}
+    warm0 = dict(rc.launches_warmup)
+    for name, fn in (("eager", step.__wrapped__), ("graph", step)):
+        state = copy.deepcopy(trainer.state)
+        for k in rc.launches:
+            rc.launches[k] = 0
+        logs[name] = []
+        for i in range(5):
+            state, m = fn(state, *trainer._batch(i % 2), 3)
+            logs[name].append((float(m["loss"]), float(m["psnr"])))
+        torch.cuda.synchronize()
+        counts[name] = dict(rc.launches)
+        assert state.step == 5
+    want = {"slot_lists": 0, "slot_rows": 5, "composite_fwd": 5,
+            "composite_bwd": 5}
+    assert counts == {"eager": want, "graph": want}, counts
+    assert trainer.events["capture"] == 1 and len(step.graphs) == 1
+    w = graphs.WARMUP_ITERS
+    assert _counts_since(warm0, rc.launches_warmup) == {
+        "slot_lists": 0, "slot_rows": w, "composite_fwd": w,
+        "composite_bwd": w}
+    assert np.isfinite(logs["graph"]).all()
+    np.testing.assert_allclose(logs["graph"], logs["eager"], rtol=1e-3)
+
+
+@pytest.mark.cuda
+def test_graphed_step_recaptures_on_a_new_key(cuda_device):
+    """A new active SH degree, a new k_tile (a new step) and a capacity
+    growth each capture once; a return to an SH degree replays its graph,
+    and a refine and an opacity reset, written into the state's tensors,
+    cost no capture and are seen by the next replay (its loss equals an
+    eager step's from a copy, rtol 1e-3)."""
+    import copy
+
+    trainer = _graph_trainer()
+    cfg, opt = trainer.cfg, trainer.optimizer
+    events = {}
+    step = make_train_step(cfg, opt, events=events)
+    state, batch = trainer.state, trainer._batch(0)
+    for sh, captures in ((0, 1), (0, 1), (1, 2), (0, 2), (1, 2)):
+        state, m = step(state, *batch, sh)
+        assert events["capture"] == captures, (sh, events)
+    state = refine_state(state, cfg, generator=trainer.generator)
+    state = reset_opacity_state(state, cfg)
+    ref = copy.deepcopy(state)
+    state, m = step(state, *batch, 1)
+    _, m_ref = step.__wrapped__(ref, *batch, 1)
+    np.testing.assert_allclose(float(m["loss"]), float(m_ref["loss"]),
+                               rtol=1e-3)
+    assert events["capture"] == 2
+    wide = make_train_step(cfg, opt, k_tile=256, events=events)
+    state, m = wide(state, *batch, 1)
+    assert events["capture"] == 3
+    state = grow_state(state, 2 * state.params.capacity)
+    for _ in range(2):
+        state, m = wide(state, *batch, 1)
+    assert events["capture"] == 4 and len(wide.graphs) == 1
+    assert np.isfinite(float(m["loss"])) and state.step == 9
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises(cuda_device, monkeypatch):
+    """A step that reads a value to the host cannot be captured: the call
+    raises, nothing runs eagerly in its place, and the state is as it
+    was."""
+    import copy
+
+    from touchgs_torch.train import trainer as tr
+
+    trainer = _graph_trainer()
+    losses = tr.compute_losses
+
+    def reading(*args, **kw):
+        out = losses(*args, **kw)
+        float(out.total)           # a sync: not allowed under capture
+        return out
+
+    monkeypatch.setattr(tr, "compute_losses", reading)
+    step = make_train_step(trainer.cfg, trainer.optimizer)
+    before = copy.deepcopy(trainer.state)
+    for k in rc.launches:
+        rc.launches[k] = 0
+    with pytest.raises(RuntimeError):
+        step(trainer.state, *trainer._batch(0), 3)
+    torch.cuda.synchronize()
+    assert trainer.state.step == before.step == 0
+    assert not step.graphs and step.events["capture"] == 0
+    assert all(n == 0 for n in rc.launches.values()), rc.launches
+    for a, b in zip(graphs.state_tensors(trainer.state),
+                    graphs.state_tensors(before)):
+        assert torch.equal(a, b)

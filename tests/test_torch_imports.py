@@ -49,6 +49,7 @@ def test_rule_catches_every_form():
 def test_files_found():
     assert len(FILES) > 20
     assert ROOT / "touchgs_torch" / "ops" / "rasterize_tiled.py" in FILES
+    assert ROOT / "touchgs_torch" / "train" / "graphs.py" in FILES
 
 
 TOUCH_SLICE = ("touch/__init__.py", "touch/uncertainty.py", "touch/fusion.py",

@@ -27,10 +27,9 @@ class Camera:
     @property
     def w2c(self) -> torch.Tensor:
         """World-to-camera in OpenCV convention (+Z forward): flip the Y and
-        Z columns of the rotation (diag(1, -1, -1)), then invert."""
-        flip = torch.tensor([1.0, -1.0, -1.0], dtype=self.c2w.dtype,
-                            device=self.c2w.device)
-        R = self.c2w[:3, :3] * flip
+        Z columns of the rotation (diag(1, -1, -1)), then invert.  Only
+        device ops, so that a step captured as a CUDA graph can take it."""
+        R = torch.cat([self.c2w[:3, :1], -self.c2w[:3, 1:3]], dim=1)
         t = self.c2w[:3, 3]
         Rt = R.T
         w2c = torch.eye(4, dtype=self.c2w.dtype, device=self.c2w.device)

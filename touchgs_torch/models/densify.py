@@ -42,18 +42,20 @@ def update_stats(
 ) -> DensifyState:
     """Accumulate positional-gradient stats in splatfacto's units: pixel
     gradients scaled by ``0.5·max(W, H)`` and radii as fractions of
-    ``max(W, H)``; ``width/height = 0`` keeps raw pixel units."""
+    ``max(W, H)``; ``width/height = 0`` keeps raw pixel units.  The sums
+    are written into ``state``'s own tensors, which it returns (the JAX
+    package returns new arrays with the same values): a step captured as a
+    CUDA graph keeps reading the tensors it captured."""
     g = torch.sqrt(torch.sum(means2d_grad * means2d_grad, dim=-1))
     r = radii
     if width or height:
         g = g * (0.5 * max(width, height))
         r = r / float(max(width, height))
     vis = visible.float()
-    return DensifyState(
-        grad_accum=state.grad_accum + g * vis,
-        grad_count=state.grad_count + vis,
-        max_radii=torch.maximum(state.max_radii, r * vis),
-    )
+    state.grad_accum.add_(g * vis)
+    state.grad_count.add_(vis)
+    torch.maximum(state.max_radii, r * vis, out=state.max_radii)
+    return state
 
 
 def _scatter_children(params: GaussianParams, child_slot, child_ok,

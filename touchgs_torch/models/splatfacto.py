@@ -63,9 +63,23 @@ def shade(
         min=0.0,
     )
     bg = (background if background is not None
-          else torch.tensor(cfg.background, dtype=torch.float32,
-                            device=params.means.device))
+          else _background(cfg.background, params.means.device))
     return proj, colors, opacities, bg
+
+
+# (colour, device) -> the configured background on that device, uploaded
+# once: a step that runs as a CUDA graph may copy nothing from the host, and
+# a graph keeps reading the tensor it captured, so entries are never dropped
+_BACKGROUNDS: dict = {}
+
+
+def _background(colour: tuple, device: torch.device) -> torch.Tensor:
+    key = (tuple(colour), device)
+    bg = _BACKGROUNDS.get(key)
+    if bg is None:
+        bg = _BACKGROUNDS[key] = torch.tensor(colour, dtype=torch.float32,
+                                              device=device)
+    return bg
 
 
 def render(

@@ -18,7 +18,9 @@ Division of labour, as in the JAX package:
 
 Each wrapper dispatches on its tensors' device: on the CPU it runs the
 plain PyTorch version in ``ops.rasterize_plain``; on CUDA it launches its
-kernel or raises.  ``launches`` counts kernel launches by name.
+kernel or raises.  ``launches`` counts kernel launches by name; a CUDA
+graph's capture and warm-up count theirs apart (``launches_on``), and each
+replay adds its capture's counts (``add_launches``).
 
 ``rasterize_cuda`` renders one view, its tile grid whole or in slices
 (``tile_shards``; with a ``mesh`` each rank composites its own slice, as
@@ -33,6 +35,7 @@ so the kernels evaluate α = op·2^(−σ̃) with one exp2.
 """
 from __future__ import annotations
 
+import contextlib
 import threading
 from typing import Optional, Sequence
 
@@ -55,14 +58,45 @@ _DMA_ALIGN = 128  # k_tile stays a multiple of this, as in the JAX package
 # incremented under a lock.
 launches = {"slot_lists": 0, "slot_rows": 0, "composite_fwd": 0,
             "composite_bwd": 0}
+# the launches of the graphed step's warm-ups, on a clone of the state
+# (``train/graphs.py``), counted apart from ``launches``
+launches_warmup = dict.fromkeys(launches, 0)
 _count_lock = threading.Lock()
+# raw stream handle -> the dict that counts the launches made on that stream
+# instead of ``launches`` (``launches_on``)
+_redirect: dict = {}
 
 
 def _launch(name: str, key: str, *args) -> None:
     """Launch ``<name>_launch`` on the current stream; count it as ``key``."""
-    cuda_build.call(name, *args, cuda_build.current_stream())
+    stream = cuda_build.current_stream()
+    cuda_build.call(name, *args, stream)
     with _count_lock:
-        launches[key] += 1
+        _redirect.get(stream, launches)[key] += 1
+
+
+@contextlib.contextmanager
+def launches_on(stream: torch.cuda.Stream, into: dict):
+    """Count the launches made on ``stream`` in ``into`` (keyed as
+    ``launches``) instead of ``launches`` while the block runs.  Keyed by
+    the stream, not the thread: autograd launches K3 from its own thread,
+    on the stream of the forward, and a viewer's renders on another thread
+    and stream keep counting in ``launches``."""
+    with _count_lock:
+        _redirect[stream.cuda_stream] = into
+    try:
+        yield into
+    finally:
+        with _count_lock:
+            del _redirect[stream.cuda_stream]
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` to ``launches``: a replayed CUDA graph launches its
+    kernels without running the wrappers."""
+    with _count_lock:
+        for k, n in counts.items():
+            launches[k] += n
 
 
 def _check_geometry(th, tw, k_tile, k_chunk):

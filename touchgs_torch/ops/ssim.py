@@ -38,11 +38,24 @@ def _band_matrix(n: int, size: int = 11) -> np.ndarray:
     return b
 
 
+# (n, device) -> the band matrix on that device, uploaded once: a step that
+# runs as a CUDA graph may copy nothing from the host, and a graph keeps
+# reading the tensor it captured, so the entries are never dropped
+_BANDS: dict = {}
+
+
+def _band(n: int, device: torch.device) -> torch.Tensor:
+    key = (n, device)
+    b = _BANDS.get(key)
+    if b is None:
+        b = _BANDS[key] = torch.as_tensor(_band_matrix(n), device=device)
+    return b
+
+
 def _blur_cm(img: torch.Tensor) -> torch.Tensor:
     """Separable Gaussian blur over (C, H, W) with zero padding."""
     _, H, W = img.shape
-    bh = torch.as_tensor(_band_matrix(H), device=img.device)
-    bw = torch.as_tensor(_band_matrix(W), device=img.device)
+    bh, bw = _band(H, img.device), _band(W, img.device)
     return torch.matmul(torch.matmul(bh, img), bw.T)
 
 

@@ -120,7 +120,7 @@ def bin_gaussians(
     pair_ok &= dx * dx + dy * dy <= (r * r)[:, None]
 
     key = (tile_id << depth_bits) | dq[:, None]
-    sentinel = torch.tensor(n_tiles << depth_bits, dtype=i32, device=dev)
+    sentinel = torch.full((), n_tiles << depth_bits, dtype=i32, device=dev)
     key = torch.where(pair_ok, key, sentinel)
 
     # the pair's gaussian is its flat index // T_cap, so the sort's

@@ -2,7 +2,10 @@
 ``tools/profile_bench.py``).
 
 Times the whole step and its pieces one by one, so that the kernel work can
-be attributed before anything is optimised: step, the K_TILE = 1024 gather
+be attributed before anything is optimised: the step run eagerly (the
+graphed step's ``__wrapped__``), the step as a CUDA graph
+(``train/graphs.py``, as ``make_train_step`` returns it on the card; its
+capture is among the warm-up calls), the K_TILE = 1024 gather
 ``attrs[gidx]``, the forward render, forward + backward, SSIM and its
 gradient, Adam, the gather's scatter-add backward, SH and its gradient, the
 full loss and its gradient, projection and binning.  The flagship is
@@ -102,6 +105,9 @@ def build_stages(device="cuda", width: int = WIDTH, height: int = HEIGHT,
     train_step = make_train_step(cfg, optimizer)
 
     def f_step():
+        return train_step.__wrapped__(state, cam, image, depth, unc, 3)
+
+    def f_graphed():
         return train_step(state, cam, image, depth, unc, 3)
 
     # the gather attrs[gidx] and its scatter-add backward, alone
@@ -156,6 +162,7 @@ def build_stages(device="cuda", width: int = WIDTH, height: int = HEIGHT,
 
     return [
         ("step:", f_step, ()),
+        ("graphed:", f_graphed, ()),
         ("gather:", f_gather, (attrs0,)),
         ("fwd:", f_fwd, (params,)),
         ("fwd+bwd:", f_fwd_bwd, (params,)),

@@ -52,7 +52,8 @@ def restore_trainer(trainer, mgr: "CheckpointManager",
     if k_tile and k_tile != trainer._k_tile:
         trainer._k_tile = int(k_tile)
         trainer.train_step = make_train_step(
-            trainer.cfg, trainer.optimizer, k_tile=trainer._k_tile)
+            trainer.cfg, trainer.optimizer, k_tile=trainer._k_tile,
+            events=trainer.events)
 
 
 def make_run_dir(output_root: str | Path, scene_name: str) -> Path:

@@ -5,7 +5,9 @@ exponentially.  Numerically the JAX package's fused Adam (itself identical
 to ``optax.multi_transform`` of six ``optax.adam``): eps after the sqrt, and
 the means learning rate evaluated at the PRE-increment count, written out
 as optax's ``exponential_decay``.  All arithmetic is float32 on the
-parameters' device; the update is applied in place.
+parameters' device; the update, the moments and the count change in
+place, and no value comes from the host, so the step can run as a CUDA
+graph (``train/graphs.py``).
 """
 from __future__ import annotations
 
@@ -55,8 +57,8 @@ class FusedAdam:
         """optax.exponential_decay(init, max_steps, final/init, final) at
         ``count``: init·rate^(count/steps), floored at the final value."""
         cfg = self.cfg
-        rate = torch.tensor(cfg.means_lr_final / cfg.means_lr_init,
-                            dtype=torch.float32, device=count.device)
+        rate = torch.full((), cfg.means_lr_final / cfg.means_lr_init,
+                          dtype=torch.float32, device=count.device)
         p = count.float() / cfg.means_lr_max_steps
         decayed = torch.where(count <= 0,
                               torch.full_like(p, cfg.means_lr_init),
@@ -71,13 +73,13 @@ class FusedAdam:
         state.count += 1
         c = state.count.float()
         # optax.adam bias correction: m̂ = m/(1−b1^t), v̂ = v/(1−b2^t)
-        bc1 = 1.0 - torch.pow(torch.tensor(b1, device=c.device), c)
-        bc2 = 1.0 - torch.pow(torch.tensor(b2, device=c.device), c)
+        bc1 = 1.0 - torch.pow(torch.full_like(c, b1), c)
+        bc2 = 1.0 - torch.pow(torch.full_like(c, b2), c)
         for k, g in grads.items():
-            m = b1 * state.mu[k] + (1.0 - b1) * g
-            v = b2 * state.nu[k] + (1.0 - b2) * (g * g)
-            state.mu[k] = m
-            state.nu[k] = v
+            # written into the moments' own tensors: a captured step keeps
+            # reading the tensors it captured
+            m = state.mu[k].copy_(b1 * state.mu[k] + (1.0 - b1) * g)
+            v = state.nu[k].copy_(b2 * state.nu[k] + (1.0 - b2) * (g * g))
             update = (-lrs[k]) * (m / bc1) / (torch.sqrt(v / bc2)
                                               + self.cfg.eps)
             params[k].add_(update)

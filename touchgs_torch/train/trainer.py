@@ -5,11 +5,13 @@ Per step: render one training view, photometric + depth loss, per-group
 Adam, densify bookkeeping; periodic refine, opacity reset and capacity
 growth; checkpoints through ``train/checkpoint.py``; with
 ``cfg.pose_opt.mode == "SO3xR3"`` per-camera pose deltas optimized with the
-model (``models/pose_opt.py``).  PyTorch runs eagerly, so the step is a
-plain function; parameters, Adam moments and densify statistics are updated
-in place where the JAX package returns new arrays.  ``run(viewer=...)``
-publishes the status and a clone of the parameters to a live
-``viewer.ViewerServer`` at each log point.
+model (``models/pose_opt.py``).  Parameters, Adam moments and densify
+statistics are updated in place where the JAX package returns new arrays,
+through the step, refine and the opacity reset alike.  On CUDA the kernel
+path's step runs as a CUDA graph (``train/graphs.py``), the counterpart
+of the JAX package's jitted, donated step.  ``run(viewer=...)`` publishes
+the status and a clone of the parameters to a live ``viewer.ViewerServer``
+at each log point.
 """
 from __future__ import annotations
 
@@ -37,6 +39,7 @@ from touchgs_torch.models.gaussians import (
 )
 from touchgs_torch.models.pose_opt import apply_pose_delta
 from touchgs_torch.models.splatfacto import compute_losses, render
+from touchgs_torch.train.graphs import GraphedStep
 from touchgs_torch.train.optim import (
     PARAM_GROUPS,
     FusedAdam,
@@ -100,18 +103,28 @@ def _finite_dead_slots(gauss: dict, alive: torch.Tensor) -> dict:
 
 def make_train_step(cfg: TrainConfig, optimizer: FusedAdam,
                     k_tile: Optional[int] = None,
-                    tile_shards: int = 0) -> Callable:
+                    tile_shards: int = 0,
+                    events: Optional[dict] = None) -> Callable:
     """The train step: (state, camera, image, depth, unc, active_sh_degree
     [, view_idx]) → (state, metrics), updating ``state`` in place.
     ``view_idx`` selects the camera's row of ``state.pose_deltas`` when the
     SO3xR3 pose optimizer is on (cfg.pose_opt.mode).  Metrics are device
     scalars, so the step never waits for the device.  ``k_tile`` overrides
     the config's per-tile entry cap; ``tile_shards`` composites the tile
-    grid in that many slices (``render``)."""
+    grid in that many slices (``render``).
+
+    The kernel path (``cfg.model.rasterize.use_pallas``) without the pose
+    optimizer and without ``tile_shards`` returns a ``graphs.GraphedStep``:
+    on a state on CUDA it runs as a CUDA graph, on the CPU as the plain
+    step, its ``__wrapped__``; it counts its captures in
+    ``events["capture"]``.  The scan path (its checkpointed chunks), the
+    pose optimizer (it indexes the deltas by a Python ``view_idx``) and
+    ``tile_shards`` return the plain step, which runs eagerly."""
     pose_on = cfg.pose_opt.mode != "off"
 
-    def step_fn(state: TrainState, camera: Camera, image, depth, unc,
-                active_sh_degree: int, view_idx: Optional[int] = None):
+    def body(state: TrainState, camera: Camera, image, depth, unc,
+             active_sh_degree: int, view_idx: Optional[int] = None) -> dict:
+        """The step's device work; returns the metrics."""
         params = state.params
         C = params.capacity
         diff = {g: getattr(params, g).detach().requires_grad_(True)
@@ -139,9 +152,8 @@ def make_train_step(cfg: TrainConfig, optimizer: FusedAdam,
         optimizer.step(targets, dict(zip(diff, grads[:-1])), state.opt_state)
         # the radii come out of the graph (ceil): kept out of it, so the
         # statistics hold no step's autograd graph alive
-        state.densify = update_stats(state.densify, grads[-1],
-                                     proj.radii.detach(), proj.valid,
-                                     camera.width, camera.height)
+        update_stats(state.densify, grads[-1], proj.radii.detach(),
+                     proj.valid, camera.width, camera.height)
         metrics = {
             "loss": losses.total.detach(),
             "rgb_l1": losses.rgb_l1.detach(),
@@ -152,29 +164,50 @@ def make_train_step(cfg: TrainConfig, optimizer: FusedAdam,
         }
         if out.lossy_tiles is not None:  # the tile kernels' telemetry
             metrics["lossy_tiles"] = out.lossy_tiles
+        return metrics
+
+    def step_fn(state: TrainState, camera: Camera, image, depth, unc,
+                active_sh_degree: int, view_idx: Optional[int] = None):
+        metrics = body(state, camera, image, depth, unc, active_sh_degree,
+                       view_idx)
         state.step += 1
         return state, metrics
 
-    return step_fn
+    if pose_on or tile_shards or not cfg.model.rasterize.use_pallas:
+        return step_fn
+    return GraphedStep(step_fn, body, events)
+
+
+def _assign(dst, src) -> None:
+    """Copy every tensor field of the dataclass ``src`` into ``dst``'s."""
+    for f in dataclasses.fields(dst):
+        getattr(dst, f.name).copy_(getattr(src, f.name))
 
 
 def refine_state(state: TrainState, cfg: TrainConfig, do_densify=True,
                  use_size_cull=True, use_screen_size=False, split_noise=None,
                  generator: Optional[torch.Generator] = None) -> TrainState:
-    """Densify + prune, then zero the Adam moments of rewritten slots."""
+    """Densify + prune, then zero the Adam moments of rewritten slots.
+    The results are written into ``state``'s tensors (the capacity never
+    changes), which it returns, as the JAX package's ``make_refine_step``
+    donates its state: a captured step goes on replaying."""
     params, densify, touched = refine(
         state.params, state.densify, cfg.densify, do_densify=do_densify,
         use_size_cull=use_size_cull, use_screen_size=use_screen_size,
         split_noise=split_noise, generator=generator,
     )
     reset_opt_slots(state.opt_state, touched)
-    return dataclasses.replace(state, params=params, densify=densify)
+    _assign(state.params, params)
+    _assign(state.densify, densify)
+    return state
 
 
 def reset_opacity_state(state: TrainState, cfg: TrainConfig) -> TrainState:
-    return dataclasses.replace(
-        state, params=reset_opacities(state.params,
-                                      cfg.densify.reset_opacity_value))
+    """The opacity reset, written into ``state``'s opacities (as
+    ``refine_state``), which it returns."""
+    state.params.logit_opacities.copy_(reset_opacities(
+        state.params, cfg.densify.reset_opacity_value).logit_opacities)
+    return state
 
 
 def _next_pow2(n: int) -> int:
@@ -269,10 +302,15 @@ class Trainer:
         )
         self._k_tile: Optional[int] = None   # escalated cap (None = config)
         self._lossy_streak = 0
-        self._lossy_window: list = []  # per-step lossy_tiles since last check
-        # how often run() grew the capacity, refined and reset the opacities
-        self.events = {"grow": 0, "refine": 0, "reset_opacity": 0}
-        self.train_step = make_train_step(cfg, self.optimizer)
+        # the largest lossy_tiles of the steps since the last check (a
+        # device scalar)
+        self._lossy_max: Optional[torch.Tensor] = None
+        # how often run() grew the capacity, refined and reset the
+        # opacities, and the graphed step captured
+        self.events = {"grow": 0, "refine": 0, "reset_opacity": 0,
+                       "capture": 0}
+        self.train_step = make_train_step(cfg, self.optimizer,
+                                          events=self.events)
         self.rng = np.random.default_rng(cfg.seed)
         self.generator = self._generator(cfg.seed)
         self.history: list[dict] = []
@@ -334,9 +372,14 @@ class Trainer:
                 self.state, cam, image, depth, unc,
                 self.active_sh_degree(step), view)
             if "lossy_tiles" in metrics:
-                # device scalar — no sync; the guard reads the window max
-                # at log points so truncation between them is seen too
-                self._lossy_window.append(metrics["lossy_tiles"])
+                # device scalars — no sync; the guard reads the window max
+                # at log points so truncation between them is seen too.  A
+                # graphed step's metrics are overwritten by its next
+                # replay, so the max is kept in a tensor of the trainer's
+                lossy = metrics["lossy_tiles"]
+                self._lossy_max = (
+                    lossy.clone() if self._lossy_max is None
+                    else torch.maximum(self._lossy_max, lossy))
             if (
                 dcfg.warmup_steps <= step < dcfg.stop_refine_at
                 and step % dcfg.refine_every == 0
@@ -376,9 +419,9 @@ class Trainer:
                 rcfg = cfg.model.rasterize
                 n_tiles = (-(-self.scene.cameras.width // rcfg.tile_w)
                            * -(-self.scene.cameras.height // rcfg.tile_h))
-                if self._lossy_window:
-                    window_lossy = float(torch.stack(self._lossy_window).max())
-                    self._lossy_window.clear()
+                if self._lossy_max is not None:
+                    window_lossy = float(self._lossy_max)
+                    self._lossy_max = None
                     last_metrics["lossy_tiles_window_max"] = window_lossy
                 else:  # the scan path reports no truncation
                     window_lossy = 0.0
@@ -394,7 +437,8 @@ class Trainer:
                     self._k_tile = min(cur_k * 2, rcfg.k_tile_max_train)
                     self._lossy_streak = 0
                     self.train_step = make_train_step(
-                        cfg, self.optimizer, k_tile=self._k_tile)
+                        cfg, self.optimizer, k_tile=self._k_tile,
+                        events=self.events)
                     last_metrics["k_tile_escalated_to"] = self._k_tile
                 last_metrics["iters_per_sec"] = (
                     (step + 1 - start) / (time.time() - t0))
