@@ -120,19 +120,26 @@ Phases (any failure raises, and the script exits nonzero with no result):
    quantised as the server does, byte for byte; K1 with rows and K2 on the
    frame's inputs against their plain versions; ms a frame, the round
    trip, the step median with and without the viewer (``launches_viewer``:
-   the frames after training). (b) 4 flagship scenes drawn from seeds in
-   one process: step 1 against four single-scene steps (loss rtol 1e-4,
-   parameters atol 1e-5, an entry moved by Adam on float32 noise held as a
-   share, ROADMAP C32), K1-K3 on the batch's 2500-tile grid against their
-   plain versions, then 25 steps of ``run_multiscene`` with two refines
-   and an opacity reset (``launches_multiscene``: one of each kernel a
-   step) timed against four single-scene ``Trainer`` runs of the same
-   schedule, and the peak memory. (c) One flagship step with the tile
-   grid in 4 slices in one process and one in a NCCL world of one, each
-   against the unsharded step within the same tolerances
-   (``launches_sharded``); K1's lists of each slice (``tile0``) equal the
-   global lists' slice, and K1-K3 on the last slice against plain; the
-   three steps timed in turns; ``scaling_bench`` at a world of one.
+   the frames after training). (b) and (c) share one NCCL world of one.
+   (b) 4 flagship scenes drawn from seeds: the batch's step 1 against four
+   single-scene steps (loss rtol 1e-4, parameters atol 1e-5, an entry
+   moved by Adam on float32 noise held as a share, ROADMAP C32), and on a
+   data=1, model=1 mesh (``parallel/multiscene.py``'s mesh path, its
+   gathers through NCCL) against the batch's (losses and PSNRs rtol 1e-5,
+   parameters as before); K1-K3 on the batch's 2500-tile grid (the
+   rank's slice of the packed grid on this model=1 mesh) against their
+   plain versions; then 25 steps of ``run_multiscene`` with two refines
+   and an opacity reset, unsharded (``launches_multiscene``: one of each kernel a step)
+   and on the mesh (``launches_multiscene_mesh``, the same), in turns
+   (batch, mesh, mesh, batch) with their step medians, the mesh run's
+   alive counts and losses against the batch run's; four single-scene
+   ``Trainer`` runs of the same schedule, and the peak memory. (c) One
+   flagship step with the tile grid in 4 slices in one process and one in
+   the NCCL world of one, each against the unsharded step within the same
+   tolerances (``launches_sharded``); K1's lists of each slice (``tile0``)
+   equal the global lists' slice, and K1-K3 on the last slice against
+   plain; the three steps timed in turns; ``scaling_bench`` at a world of
+   one.
 4i. The native layer (``phase_native``; host C++, no kernel of the
    port's): the library and both capture tools built with ``make`` from
    ``touchgs_torch/native/``; phase 4d's scene written again, then, with
@@ -196,7 +203,8 @@ Phases (any failure raises, and the script exits nonzero with no result):
    the training path's kernels also carry ``launches_hard_scene``,
    ``launches_cli``, ``launches_pipeline``, ``launches_sensor``,
    ``launches_nerf``, ``launches_viewer``, ``launches_multiscene``,
-   ``launches_sharded``, ``launches_native``, ``launches_graph``,
+   ``launches_multiscene_mesh``, ``launches_sharded``,
+   ``launches_native``, ``launches_graph``,
    ``launches_graph_trainer``, ``parallel_max_abs_err``
    (phase 4h's errors
    against plain) and, under ``hard_scene``, their errors, times and
@@ -3101,16 +3109,22 @@ def clone_state(state):
 
 
 def phase_multiscene(card: str, dev) -> tuple:
-    """(b) S = 4 flagship scenes in one process: step 1 against four
-    single-scene steps, the kernels on the batch's grid against their plain
-    versions, then 25 steps of ``run_multiscene`` with refines and an
-    opacity reset, timed against four single-scene ``Trainer`` runs of the
-    same schedule; returns its launch counts and the kernels' errors."""
+    """(b) S = 4 flagship scenes, unsharded and on a data=1, model=1 mesh
+    in the NCCL world of one that ``phase_parallel`` set up: step 1 of the
+    batch against four single-scene steps and against the mesh's step 1;
+    the kernels on the batch's grid (on a model=1 mesh, the rank's slice
+    of the packed grid) against their plain versions; then 25 steps of
+    ``run_multiscene`` with refines and an opacity reset, unsharded and
+    on the mesh in turns (batch, mesh, mesh, batch), and four single-scene
+    ``Trainer`` runs of the same schedule.  Returns the launch counts of
+    the first batch run and the first mesh run, and the kernels' largest
+    error."""
     from touchgs_torch.config import DensifyConfig
     from touchgs_torch.models.densify import DensifyState
     from touchgs_torch.models.splatfacto import shade
     from touchgs_torch.ops import rasterize_cuda as rc
     from touchgs_torch.parallel import multiscene as ms
+    from touchgs_torch.parallel.mesh import make_mesh
     from touchgs_torch.train.optim import PARAM_GROUPS, FusedAdam
     from touchgs_torch.train.trainer import (TrainState, Trainer,
                                              make_train_step)
@@ -3119,12 +3133,22 @@ def phase_multiscene(card: str, dev) -> tuple:
     cfg = flagship_cfg(densify=DensifyConfig(**MS_DENSIFY))
     data = [multiscene_data(s, dev) for s in range(S)]
     opt = FusedAdam(cfg.optim)
+    mesh = make_mesh(data=1, model=1)
+    check(torch.distributed.get_backend() == "nccl"
+          and None not in (mesh.group, mesh.axis("model").group,
+                           mesh.axis("data").group),
+          f"a data=1, model=1 mesh on NCCL groups: {mesh}")
 
     def single_state(p):
         p = clone_state(p)
         return TrainState(params=p, opt_state=opt.init(
             {g: getattr(p, g) for g in PARAM_GROUPS}),
             densify=DensifyState.zeros(CAPACITY, dev), step=0)
+
+    def batch_state(on_mesh: bool):
+        state = ms.make_multiscene_state([clone_state(p) for p, _ in data],
+                                         cfg, opt)
+        return ms.shard_multiscene_state(state, mesh) if on_mesh else state
 
     # every view on the card once
     views = [[torch.as_tensor(getattr(sc, k), device=dev)
@@ -3138,10 +3162,10 @@ def phase_multiscene(card: str, dev) -> tuple:
                 *(torch.stack([views[s][k][v] for s, v in enumerate(view_of)])
                   for k in range(3)))
 
-    # step 1 against four single-scene steps
-    state = ms.make_multiscene_state([clone_state(p) for p, _ in data], cfg,
-                                     opt)
+    # step 1 against four single-scene steps, and on the mesh
+    state = batch_state(False)
     step = ms.make_multiscene_train_step(cfg, opt)
+    mesh_step = ms.make_multiscene_train_step(cfg, opt, mesh)
     state, m = step(state, *batch([0] * S), 0)
     single = make_train_step(cfg, opt)
     for s in range(S):
@@ -3151,65 +3175,114 @@ def phase_multiscene(card: str, dev) -> tuple:
                   sm["loss"], ms.scene_params(state.params, s), st.params,
                   cfg.optim)
     del st
+    mstate, mm = mesh_step(batch_state(True), *batch([0] * S), 0)
+    full = ms.gather_multiscene_state(mstate, mesh)
+    for k in ("loss_per_scene", "psnr_per_scene"):
+        got, want = mm[k].double(), m[k].double()
+        check(bool(((got - want).abs() <= 1e-5 * want.abs()).all()),
+              f"mesh step 1: {k} {mm[k].tolist()} against {m[k].tolist()}")
+    for s in range(S):
+        same_step(f"mesh step 1, scene {s}", mm["loss_per_scene"][s],
+                  m["loss_per_scene"][s], ms.scene_params(full.params, s),
+                  ms.scene_params(state.params, s), cfg.optim)
+    def same(a, b):  # the dead slots' quaternions are NaN in both
+        return bool(((a == b) | (a.isnan() & b.isnan())).all())
 
-    # the kernels on the batch's grid against their plain versions
+    exact = all(same(getattr(full.params, g), getattr(state.params, g))
+                for g in PARAM_GROUPS)
+    print(f"mesh step 1 (data=1, model=1, NCCL world of one): losses "
+          f"{mm['loss_per_scene'].tolist()}, PSNRs "
+          f"{mm['psnr_per_scene'].tolist()}; parameters equal to the "
+          f"batch's, every slot: {exact}")
+    del full
+
+    # the kernels on the batch's grid against plain; on a model=1 mesh the
+    # rank's slice of the packed grid is this whole grid (the card test
+    # test_packed_grid_slices_on_card holds 2 and 4 slices)
     with torch.no_grad():
         shaded = [shade(ms.scene_params(state.params, s),
-                           ms.camera_at(batch([0] * S)[0], s), cfg.model, 3)
+                        ms.camera_at(batch([0] * S)[0], s), cfg.model, 3)
                   for s in range(S)]
         projs, colors, opac, _ = zip(*shaded)
         x = rc.pack_scenes(projs, colors, opac, WIDTH, HEIGHT,
-                           cfg.model.rasterize, k_chunk=cfg.model.rasterize.
-                           k_chunk)
+                           cfg.model.rasterize,
+                           k_chunk=cfg.model.rasterize.k_chunk)
         err = hold_kernels(f"multi-scene grid ({S} scenes)", x["attrs"],
                            x["sorted_gauss"], x["tile_starts"],
                            x["tile_counts"], x["tile_ids"], x["geom"])
-    del shaded, projs, colors, opac, x
+    del x, shaded, projs, colors, opac, state, mstate
 
-    # 25 steps of the schedule, timed
-    events = {"refine": 0, "reset_opacity": 0}
-    refine_fn = ms.make_multiscene_refine_step(cfg)
-    reset_fn = ms.make_multiscene_reset_opacity_step(cfg)
+    # 25 steps of the schedule, unsharded and on the mesh in turns
+    def schedule(on_mesh: bool) -> tuple:
+        events = {"refine": 0, "reset_opacity": 0}
+        refine_fn = ms.make_multiscene_refine_step(
+            cfg, mesh if on_mesh else None)
+        reset_fn = ms.make_multiscene_reset_opacity_step(cfg)
 
-    def refine(*a, **k):
-        events["refine"] += 1
-        return refine_fn(*a, **k)
+        def refine(*a, **k):
+            events["refine"] += 1
+            return refine_fn(*a, **k)
 
-    def reset(*a, **k):
-        events["reset_opacity"] += 1
-        return reset_fn(*a, **k)
+        def reset(*a, **k):
+            events["reset_opacity"] += 1
+            return reset_fn(*a, **k)
 
-    state = ms.make_multiscene_state([clone_state(p) for p, _ in data], cfg,
-                                     opt)
-    alive0 = state.params.alive.sum(dim=-1).tolist()
-    rng_views = np.random.default_rng(5)
-    stamps = []
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    zero_launches()
-    stamps.append(time.perf_counter())
-    state, m = ms.run_multiscene(
-        state, cfg, step,
-        lambda i, rng: (*batch(rng_views.integers(0, MS_VIEWS, S)),
-                        min(i // cfg.sh_degree_interval, 3)),
-        MS_STEPS, refine_fn=refine, reset_fn=reset, n_train_views=MS_VIEWS,
-        log_fn=lambda m: stamps.append(time.perf_counter()))
-    torch.cuda.synchronize()
-    counts = dict(rc.launches)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    ms_ms = np.diff(stamps) * 1e3
-    alive1 = state.params.alive.sum(dim=-1).tolist()
-    want = {"slot_lists": 0, "slot_rows": MS_STEPS, "composite_fwd": MS_STEPS,
-            "composite_bwd": MS_STEPS}
-    check(counts == want, f"multi-scene launches {counts}, want {want} "
-          f"(one of each kernel a step for all {S} scenes)")
-    check(events["refine"] >= 1 and events["reset_opacity"] >= 1,
-          f"multi-scene schedule ran {events}")
-    losses = m["loss_per_scene"].tolist()
-    check(all(np.isfinite(losses)), f"multi-scene losses {losses}")
+        st = batch_state(on_mesh)
+        rng_views = np.random.default_rng(5)
+        stamps = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        stamps.append(time.perf_counter())
+        st, met = ms.run_multiscene(
+            st, cfg, mesh_step if on_mesh else step,
+            lambda i, rng: (*batch(rng_views.integers(0, MS_VIEWS, S)),
+                            min(i // cfg.sh_degree_interval, 3)),
+            MS_STEPS, refine_fn=refine, reset_fn=reset,
+            n_train_views=MS_VIEWS,
+            log_fn=lambda m: stamps.append(time.perf_counter()),
+            mesh=mesh if on_mesh else None)
+        torch.cuda.synchronize()
+        counts = dict(rc.launches)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = {"slot_lists": 0, "slot_rows": MS_STEPS,
+                "composite_fwd": MS_STEPS, "composite_bwd": MS_STEPS}
+        name = "mesh" if on_mesh else "multi-scene"
+        check(counts == want, f"{name} launches {counts}, want {want} "
+              f"(one of each kernel a step for all {S} scenes)")
+        check(events["refine"] >= 1 and events["reset_opacity"] >= 1,
+              f"{name} schedule ran {events}")
+        losses = met["loss_per_scene"].tolist()
+        check(all(np.isfinite(losses)), f"{name} losses {losses}")
+        alive = ms.alive_per_scene(st, mesh if on_mesh else None).tolist()
+        return (np.diff(stamps) * 1e3, counts, events, losses, alive, peak)
+
+    alive0 = [int(p.alive.sum()) for p, _ in data]
+    runs = {}
+    for on_mesh in (False, True, True, False):
+        runs.setdefault(on_mesh, []).append(schedule(on_mesh))
+        torch.cuda.empty_cache()
+    (ms_ms, counts, events, losses, alive1, peak) = runs[False][0]
     print(f"multi-scene: {S} scenes, {MS_STEPS} steps, {events}; alive "
           f"{alive0} -> {alive1}; losses {[round(v, 5) for v in losses]}")
-    del state, m
+    (_, counts_mesh, events_m, losses_m, alive_m, peak_m) = runs[True][0]
+    check(alive_m == alive1 and np.allclose(losses_m, losses, rtol=1e-5),
+          f"mesh run: alive {alive_m}, losses {losses_m}, against the "
+          f"batch's {alive1}, {losses}")
+    med = {k: float(np.median(np.concatenate([r[0] for r in v])))
+           for k, v in runs.items()}
+    turns = [float(np.median(runs[k][i][0]))
+             for k, i in ((False, 0), (True, 0), (True, 1), (False, 1))]
+    print(f"multi-scene mesh (data=1, model=1, NCCL world of one): "
+          f"{MS_STEPS} steps, {events_m}; alive {alive_m}; losses "
+          f"{[round(v, 5) for v in losses_m]}; launches {counts_mesh}; step "
+          f"median {med[True]:.3f} ms against the unsharded batch's "
+          f"{med[False]:.3f} ms ({med[True] / med[False]:.3f}x; batch, "
+          f"mesh, mesh, batch, {MS_STEPS} steps each, their medians "
+          f"{', '.join(f'{t:.3f}' for t in turns)} ms); kernels on its "
+          f"slice (the whole packed grid) at most {err:.3e} from plain; "
+          f"peak memory "
+          f"{peak_m:.2f} GiB; on {card}")
 
     # four single-scene Trainer runs of the same schedule
     single_ms = []
@@ -3221,14 +3294,14 @@ def phase_multiscene(card: str, dev) -> tuple:
         tr.run(MS_STEPS, log_fn=lambda m: st.append(time.perf_counter()))
         single_ms.append(float(np.median(np.diff(st) * 1e3)))
         del tr
-    med = float(np.median(ms_ms))
     single = float(np.mean(single_ms))
-    print(f"multi-scene: step median {med:.3f} ms for {S} scenes "
-          f"({1e3 / med:.2f} it/s, {S * 1e3 / med:.2f} scene-steps/s); "
-          f"single-scene Trainer runs {[round(v, 3) for v in single_ms]} ms "
-          f"({1e3 / single:.2f} it/s): {single * S / med:.3f}x; one launch "
-          f"each of K1, K2, K3 a step; peak memory {peak:.2f} GiB; on {card}")
-    return counts, err
+    print(f"multi-scene: step median {med[False]:.3f} ms for {S} scenes "
+          f"({1e3 / med[False]:.2f} it/s, {S * 1e3 / med[False]:.2f} "
+          f"scene-steps/s); single-scene Trainer runs "
+          f"{[round(v, 3) for v in single_ms]} ms ({1e3 / single:.2f} it/s):"
+          f" {single * S / med[False]:.3f}x; one launch each of K1, K2, K3 "
+          f"a step; peak memory {peak:.2f} GiB; on {card}")
+    return counts, counts_mesh, err
 
 
 def phase_sharded(card: str, dev, batch) -> tuple:
@@ -3239,10 +3312,7 @@ def phase_sharded(card: str, dev, batch) -> tuple:
     lists; their times in turns; then ``scaling_bench`` at a world of one.
     Returns the launch counts of the two sharded steps and the kernels'
     errors on a slice."""
-    import socket
-
     from touchgs_torch.ops import rasterize_cuda as rc
-    from touchgs_torch.parallel.distributed import init_distributed
     from touchgs_torch.parallel.mesh import make_mesh
     from touchgs_torch.parallel.sharded import (gather_state,
                                                 make_sharded_train_step,
@@ -3258,12 +3328,6 @@ def phase_sharded(card: str, dev, batch) -> tuple:
     state0 = TrainState(params=params, opt_state=opt.init(
         {g: getattr(params, g) for g in PARAM_GROUPS}),
         densify=DensifyState.zeros(CAPACITY, dev), step=0)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    check(init_distributed(f"127.0.0.1:{port}", 1, 0) is False
-          and torch.distributed.get_backend() == "nccl",
-          "a NCCL world of one")
     mesh = make_mesh()
     check(mesh.size == 1 and mesh.group is not None, f"mesh {mesh}")
     plain_step = make_train_step(cfg, opt)
@@ -3328,14 +3392,17 @@ def phase_sharded(card: str, dev, batch) -> tuple:
     del states
     line = scaling_bench.measure(torch.device("cuda"))
     print(f"scaling_bench (world of one): {json.dumps(line)}")
-    torch.distributed.destroy_process_group()
     return counts, err
 
 
 def phase_parallel(card: str, dev=torch.device("cuda")) -> dict:
-    """Phase 4h: the viewer (a), multi-scene (b) and sharded (c) paths,
-    each driven with the launch counters set to 0 just before and read
-    just after; returns their counts and the kernels' errors."""
+    """Phase 4h: the viewer (a), multi-scene (b, unsharded and on a mesh)
+    and sharded (c) paths, each driven with the launch counters set to 0
+    just before and read just after; (b) and (c) in one NCCL world of one.
+    Returns their counts and the kernels' errors."""
+    import socket
+
+    from touchgs_torch.parallel.distributed import init_distributed
     from touchgs_torch.train.trainer import Trainer
 
     t0 = time.time()
@@ -3344,12 +3411,20 @@ def phase_parallel(card: str, dev=torch.device("cuda")) -> dict:
     counts_v, err_v = phase_viewer(card, trainer)
     del trainer
     torch.cuda.empty_cache()
-    counts_m, err_m = phase_multiscene(card, dev)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    check(init_distributed(f"127.0.0.1:{port}", 1, 0) is False
+          and torch.distributed.get_backend() == "nccl",
+          "a NCCL world of one")
+    counts_m, counts_mm, err_m = phase_multiscene(card, dev)
     torch.cuda.empty_cache()
     counts_s, err_s = phase_sharded(card, dev, batch)
+    torch.distributed.destroy_process_group()
     torch.cuda.empty_cache()
     print(f"phase 4h: {time.time() - t0:.1f} s")
-    return {"viewer": counts_v, "multiscene": counts_m, "sharded": counts_s,
+    return {"viewer": counts_v, "multiscene": counts_m,
+            "multiscene_mesh": counts_mm, "sharded": counts_s,
             "errors": {"viewer": err_v, "multiscene": err_m,
                        "sharded": err_s}}
 
@@ -3965,7 +4040,8 @@ def main() -> int:
             k["launches_pipeline"] = pipeline_counts[k["name"]]
             k["launches_sensor"] = sensor_counts[k["name"]]
             k["launches_nerf"] = nerf_counts[k["name"]]
-            for path in ("viewer", "multiscene", "sharded"):
+            for path in ("viewer", "multiscene", "multiscene_mesh",
+                         "sharded"):
                 k[f"launches_{path}"] = parallel[path][k["name"]]
             k["launches_native"] = native_counts[k["name"]]
             k["launches_graph"] = graph_counts[k["name"]]

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import look_at_c2w
+from chip_smoke import look_at_c2w, same_step
 from touchgs_torch.config import (DensifyConfig, ModelConfig, RasterizeConfig,
                                   TrainConfig)
 from touchgs_torch.data.cameras import Camera, Cameras
@@ -1085,6 +1085,86 @@ def test_tile_shards_on_card(cuda_device):
         torch.testing.assert_close(x, y, rtol=0, atol=1e-9)
 
 
+def packed_scenes(dev, n_scenes: int = 3) -> dict:
+    """``rc.pack_scenes``'s grid of ``n_scenes`` views of 96x64 (each
+    ``scene_arrays`` from its own seed): 6 tiles a scene."""
+    projs, colors, opac = [], [], []
+    for s in range(n_scenes):
+        a = scene_arrays(seed=5 + s)
+        projs.append(_project(a, dev))
+        colors.append(torch.as_tensor(a["colors"], device=dev))
+        opac.append(torch.as_tensor(a["opac"], device=dev))
+    return rc.pack_scenes(projs, colors, opac, W, H, RasterizeConfig(),
+                          k_tile=K_TILE, k_chunk=K_CHUNK)
+
+
+def composite_slices(x: dict, shards: int) -> tuple:
+    """K1 with rows, K2 and K3 on each of ``shards`` contiguous slices of
+    ``pack_scenes``'s grid ``x`` (K1 with the slice's offset into the grid
+    as ``tile0``, K2 and K3 with its tile ids), one launch of each a
+    slice, and once on the whole grid, with one seeded cotangent.  Returns
+    the slices' (gidx, rows, forward stack, per-slot gradients),
+    concatenated, and the whole grid's."""
+    th, tw, k_tile, k_chunk, _, _ = x["geom"]
+    n = x["tile_counts"].shape[0]
+    dead = x["attrs"].shape[0] - plain.DEAD_SPREAD
+    capped = torch.clamp(x["tile_counts"], max=k_tile)
+    gen = torch.Generator(device=capped.device)
+    gen.manual_seed(3)
+    cot = torch.randn((n, plain.ROWS, th * tw), generator=gen,
+                      device=capped.device)
+
+    def launch(t0, t1):
+        gidx, rows = rc.slot_rows(
+            x["attrs"], x["sorted_gauss"], x["tile_starts"][t0:t1].contiguous(),
+            capped[t0:t1].contiguous(), t1 - t0, k_tile, dead, t0)
+        tids = x["tile_ids"][t0:t1].contiguous()
+        nc = torch.div(capped[t0:t1] + k_chunk - 1, k_chunk,
+                       rounding_mode="floor").to(torch.int32).contiguous()
+        fwd = rc.forward_tiles(nc, tids, rows, *x["geom"])
+        done = fwd[:, plain.ROW_DONE, 0].to(torch.int32).contiguous()
+        d = rc.backward_tiles(done, tids, rows, fwd,
+                              cot[t0:t1].contiguous(), *x["geom"])
+        return gidx, rows, fwd, d
+
+    per = -(-n // shards)
+    parts = [launch(t0, min(t0 + per, n)) for t0 in range(0, n, per)]
+    return tuple(torch.cat(p) for p in zip(*parts)), launch(0, n)
+
+
+def assert_slices_equal_whole(sliced, whole) -> None:
+    """K1's lists and rows and K3's gradients bit for bit; K2's rows within
+    ``chip_smoke.hold_kernels``'s tolerances, its T and chunk rows equal."""
+    (gidx, rows, fwd, d), (gidx0, rows0, fwd0, d0) = sliced, whole
+    assert torch.equal(gidx, gidx0) and torch.equal(rows, rows0)
+    assert torch.equal(fwd[:, plain.ROW_DONE], fwd0[:, plain.ROW_DONE])
+    assert torch.equal(fwd[:, plain.ROW_T], fwd0[:, plain.ROW_T])
+    sel = [0, 1, 2, 4, 5]
+    torch.testing.assert_close(fwd[:, sel], fwd0[:, sel], rtol=0, atol=3e-5)
+    torch.testing.assert_close(fwd[:, 3], fwd0[:, 3], rtol=0, atol=3e-4)
+    assert torch.equal(d, d0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 4])
+def test_packed_grid_slices_on_card(cuda_device, shards):
+    """The packed grid of 3 scenes (18 tiles) cut into 2 and 4 contiguous
+    slices, each composited through one launch of K1 (its ``tile0``), K2
+    and K3, equals one launch on the whole grid: K1 and K3 bit-equal, K2
+    within its tolerance.  This is what each ``model`` rank of a
+    multi-scene mesh runs on its slice."""
+    x = packed_scenes(cuda_device)
+    for k in rc.launches:
+        rc.launches[k] = 0
+    sliced, whole = composite_slices(x, shards)
+    torch.cuda.synchronize()
+    assert rc.launches == {"slot_lists": 0, "slot_rows": shards + 1,
+                           "composite_fwd": shards + 1,
+                           "composite_bwd": shards + 1}
+    assert float(whole[2][:, plain.ROW_DONE].max()) > 0
+    assert_slices_equal_whole(sliced, whole)
+
+
 @pytest.mark.cuda
 def test_nccl_world_of_one(cuda_device):
     """The sharded step in a NCCL world of one against the unsharded step
@@ -1124,6 +1204,88 @@ def test_nccl_world_of_one(cuda_device):
         torch.testing.assert_close(getattr(full.params, g)[alive],
                                    getattr(ref.params, g)[alive], rtol=0,
                                    atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_multiscene_mesh_world_of_one(cuda_device):
+    """A 2-scene step on a data=1, model=1 mesh in a NCCL world of one (the
+    gathers through NCCL) against the unsharded batch from the same state:
+    one launch each of K1, K2 and K3, losses and PSNRs rtol 1e-5, live
+    parameters as ``chip_smoke.same_step`` holds them (atol 1e-5, an entry
+    moved by Adam on float32 noise held as a share, ROADMAP C32); then the
+    refine and the opacity reset of the batch's stepped state, on the mesh
+    and unsharded, bit for bit."""
+    import copy
+    import socket
+
+    from touchgs_torch.parallel import multiscene as ms
+    from touchgs_torch.parallel.distributed import init_distributed
+    from touchgs_torch.parallel.mesh import make_mesh
+    from touchgs_torch.train.optim import FusedAdam
+
+    cfg = _card_cfg()
+    opt = FusedAdam(cfg.optim)
+    trainers = [Trainer(card_scene(), dataclasses.replace(cfg, seed=s))
+                for s in range(2)]
+    batches = [t._batch(s) for s, t in enumerate(trainers)]
+    batch = (ms.stack_cameras([b[0] for b in batches]),
+             *(torch.stack([b[i] for b in batches]) for i in (1, 2, 3)), 3)
+    state0 = ms.make_multiscene_state([t.state.params for t in trainers],
+                                      cfg, opt)
+    meshes = {"batch": None}
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    assert init_distributed(f"127.0.0.1:{port}", 1, 0) is False
+    try:
+        meshes["mesh"] = mesh = make_mesh(data=1, model=1)
+        assert mesh.axis("model").group is not None
+        assert mesh.axis("data").group is not None
+
+        def placed(state, m):
+            state = copy.deepcopy(state)
+            return state if m is None else ms.shard_multiscene_state(state, m)
+
+        def whole(state, m):
+            return state if m is None else ms.gather_multiscene_state(state,
+                                                                      m)
+
+        stepped, refined = {}, {}
+        for name, m in meshes.items():
+            for k in rc.launches:
+                rc.launches[k] = 0
+            state, metrics = ms.make_multiscene_train_step(cfg, opt, m)(
+                placed(state0, m), *batch)
+            torch.cuda.synchronize()
+            assert rc.launches == {"slot_lists": 0, "slot_rows": 1,
+                                   "composite_fwd": 1, "composite_bwd": 1}
+            stepped[name] = (whole(state, m), metrics)
+        for name, m in meshes.items():
+            state = ms.make_multiscene_refine_step(cfg, m)(
+                placed(stepped["batch"][0], m),
+                ms.scene_generators(0, 2, cuda_device))
+            refined[name] = whole(
+                ms.make_multiscene_reset_opacity_step(cfg)(state), m)
+    finally:
+        torch.distributed.destroy_process_group()
+    (ref, rm), (got, gm) = stepped["batch"], stepped["mesh"]
+    for k in rm:
+        torch.testing.assert_close(gm[k], rm[k], rtol=1e-5, atol=0, msg=k)
+    for s in range(2):
+        same_step(f"scene {s}", gm["loss_per_scene"][s],
+                  rm["loss_per_scene"][s], ms.scene_params(got.params, s),
+                  ms.scene_params(ref.params, s), cfg.optim)
+    alive = ref.params.alive
+    ref, got = refined["batch"], refined["mesh"]
+    assert not torch.equal(ref.params.alive, alive), "the refine did nothing"
+    pairs = [(f.name, getattr(got.params, f.name),
+              getattr(ref.params, f.name))
+             for f in dataclasses.fields(ref.params)]
+    pairs += [(f"mu.{k}", got.opt_state.mu[k], v)
+              for k, v in ref.opt_state.mu.items()]
+    for name, a, b in pairs:  # NaN where both have it: dead slots
+        torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True,
+                                   msg=name)
 
 
 @pytest.mark.cuda

@@ -101,6 +101,33 @@ def test_single_process_helpers(monkeypatch):
     assert set(pmesh.param_pspecs().values()) == {("model", "data")}
 
 
+@pytest.mark.parametrize("data, model", [(1, 1), (2, 2), (4, 2), (1, 4)])
+def test_mesh_axes(data, model):
+    """``Mesh.axis``: rank r of a data x model mesh sits at (r // model,
+    r % model); its ``model`` axis is the 1 x model mesh of the ranks that
+    share its ``data`` coordinate, its ``data`` axis the data x 1 mesh of
+    those that share its ``model`` coordinate.  Without a process group the
+    axes only describe (a gather over more than one rank raises); a mesh
+    with a group but no axis groups raises; ``gather_scene_rows`` of one
+    rank keeps the scenes' rows."""
+    mesh = pmesh.make_mesh(world=data * model, data=data, model=model)
+    for r in range(data * model):
+        m = dataclasses.replace(mesh, rank=r)
+        assert m.coords == (r // model, r % model)
+        assert m.axis("model") == pmesh.Mesh(1, model, r % model)
+        assert m.axis("data") == pmesh.Mesh(data, 1, r // model)
+        for name, n in (("model", model), ("data", data)):
+            if n > 1:
+                with pytest.raises(RuntimeError, match="process group"):
+                    m.axis(name).gather_rows(torch.zeros(2))
+    with pytest.raises(ValueError, match="mesh axis"):
+        mesh.axis("tiles")
+    with pytest.raises(RuntimeError, match="no model group"):
+        dataclasses.replace(mesh, group=object()).axis("model")
+    x = torch.arange(24.0).reshape(2, 3, 4)
+    assert torch.equal(pmesh.make_mesh().gather_scene_rows(x), x)
+
+
 @pytest.fixture(scope="module")
 def view():
     """300 random Gaussians in a capacity of 512, SH 1, seen at 160x96

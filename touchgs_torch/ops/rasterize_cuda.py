@@ -27,7 +27,8 @@ replay adds its capture's counts (``add_launches``).
 the JAX package's ``shard_map`` region does, ``rasterize_pallas.py:629-
 686``).  ``rasterize_cuda_scenes`` renders S scenes through one launch of
 each kernel, where the JAX package vmaps the kernels over a scene axis
-(``parallel/multiscene.py:109-132``).
+(``parallel/multiscene.py:109-132``); with a mesh each rank composites its
+slice of the scenes' packed grid.
 
 Attribute layout (16 columns): [mx, my, ca~, cb~, cc~, op, z, r, g, b, 0..]
 where ca~ = ½·log2(e)·conic_a, cb~ = log2(e)·conic_b, cc~ = ½·log2(e)·conic_c,
@@ -48,7 +49,9 @@ from touchgs_torch.ops.cuda_build import check_tensor as _check
 from touchgs_torch.ops.cuda_build import on_cuda as _on_cuda
 from touchgs_torch.ops.projection import ProjectedGaussians
 from touchgs_torch.ops.rasterize_ref import RenderOutput
-from touchgs_torch.ops.tiles import TileBins, bin_gaussians, gather_projection
+from touchgs_torch.ops.tiles import (TileBins, bin_gaussians,
+                                     gather_projection,
+                                     gather_scene_projections)
 
 _LOG2E = 1.4426950408889634
 _DMA_ALIGN = 128  # k_tile stays a multiple of this, as in the JAX package
@@ -316,35 +319,35 @@ def _composite(attrs, sorted_gauss, tile_starts, counts, tile_ids, geom,
                                  early_exit)
 
 
-def _composite_shards(attrs, bins: TileBins, geom, early_exit: bool,
-                      tile_shards: int, mesh) -> torch.Tensor:
-    """The (n_tiles, 8, th·tw) stack of the whole grid.  With more than one
-    shard the grid is padded to a multiple of their number and cut into
-    contiguous slices, each composited by its own launches of K1 (with the
-    slice's first tile as ``tile0``), K2 and K3 with the slice's grid
-    tile ids.  With a mesh this rank composites its slice and all-gathers
-    the others'; without one every slice runs here, in order.  Padded
-    tiles have no entries and are dropped."""
-    n_tiles = bins.tile_counts.shape[0]
-    tile_ids = torch.arange(n_tiles, dtype=torch.int32,
-                            device=attrs.device)
+def _composite_shards(attrs, sorted_gauss, tile_starts, tile_counts,
+                      tile_ids, geom, early_exit: bool, tile_shards: int,
+                      mesh) -> torch.Tensor:
+    """The (n_tiles, 8, th·tw) stack of a grid: one view's (``tile_ids``
+    0, 1, ...) or ``pack_scenes``'s (each scene's ids again).  With more
+    than one shard the grid is padded to a multiple of their number and
+    cut into contiguous slices, each composited by its own launches of K1
+    (with the slice's first tile as ``tile0``), K2 and K3 with the slice's
+    grid tile ids.  With a mesh this rank composites its slice and
+    all-gathers the others'; without one every slice runs here, in order.
+    Padded tiles have no entries and are dropped."""
+    n_tiles = tile_counts.shape[0]
     if mesh is not None:
         if tile_shards not in (0, mesh.size):
             raise ValueError(f"tile_shards={tile_shards} with a mesh of "
                              f"{mesh.size} ranks: want 0 or {mesh.size}")
         tile_shards = mesh.size
     elif tile_shards <= 1:
-        return _composite(attrs, bins.sorted_gauss, bins.tile_starts,
-                          bins.tile_counts, tile_ids, geom, early_exit)
+        return _composite(attrs, sorted_gauss, tile_starts, tile_counts,
+                          tile_ids, geom, early_exit)
     per = -(-n_tiles // tile_shards)
     pad = per * tile_shards - n_tiles
     starts, counts, tile_ids = (torch.nn.functional.pad(a, (0, pad))
-                                for a in (bins.tile_starts, bins.tile_counts,
+                                for a in (tile_starts, tile_counts,
                                           tile_ids))
 
     def shard(s):
         sl = slice(s * per, (s + 1) * per)
-        return _composite(attrs, bins.sorted_gauss, starts[sl].contiguous(),
+        return _composite(attrs, sorted_gauss, starts[sl].contiguous(),
                           counts[sl].contiguous(), tile_ids[sl].contiguous(),
                           geom, early_exit, tile0=s * per)
 
@@ -425,8 +428,11 @@ def rasterize_cuda(
                          N)
     n_tx, n_ty = bins.n_tiles_x, bins.n_tiles_y
     geom = (cfg.tile_h, cfg.tile_w, k_tile, k_chunk, n_tx, cfg)
-    stack = _composite_shards(attrs, bins, geom, early_exit, tile_shards,
-                              mesh)
+    tile_ids = torch.arange(n_tx * n_ty, dtype=torch.int32,
+                            device=attrs.device)
+    stack = _composite_shards(attrs, bins.sorted_gauss, bins.tile_starts,
+                              bins.tile_counts, tile_ids, geom, early_exit,
+                              tile_shards, mesh)
     return _finish(stack, bins.tile_counts, k_tile, n_tx, n_ty, cfg.tile_h,
                    cfg.tile_w, width, height, background)
 
@@ -440,6 +446,7 @@ def pack_scenes(
     cfg: RasterizeConfig = RasterizeConfig(),
     k_tile: Optional[int] = None,
     k_chunk: int = 64,
+    mesh=None,
 ) -> dict:
     """The kernels' inputs for S scenes of one resolution and one capacity
     C as one tile grid: the scenes' grids concatenated, scene s's sorted
@@ -447,15 +454,24 @@ def pack_scenes(
     and the 512 dead rows, its tile starts by the pairs of the scenes
     before it, and each scene's tiles carrying the grid's ``tile_ids``,
     from which K2 and K3 take the pixel origin.  Also each scene's
-    ``bins`` and the kernels' ``geom``."""
+    ``bins`` and the kernels' ``geom``.
+
+    With a ``mesh`` (``parallel.mesh.Mesh``) each scene's inputs are this
+    rank's rows of its capacity: the binning inputs and the attribute rows
+    of all S scenes are all-gathered, each in one gather, into scene-major
+    order, and every rank bins every scene."""
     S = len(projs)
-    N = projs[0].means2d.shape[0]
+    rows = torch.stack([_attr_rows(p, c, o)
+                        for p, c, o in zip(projs, colors, opacities)])
+    if mesh is not None:
+        projs = gather_scene_projections(projs, mesh)
+        rows = mesh.gather_scene_rows(rows)
+    N = rows.shape[1]
     bins = [bin_gaussians(p, width, height, cfg) for p in projs]
     k_tile = _fit_k_tile(cfg.k_tile if k_tile is None else k_tile, k_chunk,
                          N)
     n_tx, n_ty = bins[0].n_tiles_x, bins[0].n_tiles_y
-    attrs = _with_dead_rows(torch.cat(
-        [_attr_rows(p, c, o) for p, c, o in zip(projs, colors, opacities)]))
+    attrs = _with_dead_rows(rows.reshape(S * N, plain.A))
     offsets = [0]
     for b in bins[:-1]:
         offsets.append(offsets[-1] + b.sorted_gauss.shape[0])
@@ -482,16 +498,25 @@ def rasterize_cuda_scenes(
     k_tile: Optional[int] = None,
     k_chunk: int = 64,
     early_exit: bool = True,
+    mesh=None,
 ) -> list:
     """Render S scenes of one resolution and one capacity through one
     launch each of K1, K2 and K3 on ``pack_scenes``'s grid.  Each scene's
     image, and its gradients, equal those of ``rasterize_cuda`` alone; the
     dead slots' indices differ, their rows (zero) do not.  Returns the S
-    ``RenderOutput``s."""
+    ``RenderOutput``s.
+
+    With a ``mesh`` of ``model`` ranks the scenes' inputs are this rank's
+    rows (``pack_scenes``), the packed grid is cut into one contiguous
+    slice a rank, this rank composites its slice through one launch each
+    of K1 (with the slice's offset into the packed grid as ``tile0``), K2
+    and K3, and the slices are all-gathered: every rank returns every
+    scene's image whole."""
     x = pack_scenes(projs, colors, opacities, width, height, cfg, k_tile,
-                    k_chunk)
-    stack = _composite(x["attrs"], x["sorted_gauss"], x["tile_starts"],
-                       x["tile_counts"], x["tile_ids"], x["geom"], early_exit)
+                    k_chunk, mesh)
+    stack = _composite_shards(x["attrs"], x["sorted_gauss"],
+                              x["tile_starts"], x["tile_counts"],
+                              x["tile_ids"], x["geom"], early_exit, 0, mesh)
     th, tw, k_tile, _, n_tx, _ = x["geom"]
     n_ty = x["bins"][0].n_tiles_y
     n_tiles = n_tx * n_ty

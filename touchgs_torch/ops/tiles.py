@@ -141,15 +141,31 @@ def bin_gaussians(
     )
 
 
+def _binning_rows(proj: ProjectedGaussians) -> torch.Tensor:
+    """(N, 6) detached: what binning reads of a projection (means, depths,
+    radii, cull radii, validity)."""
+    r = proj.radii if proj.cull_radii is None else proj.cull_radii
+    return torch.stack([proj.means2d[:, 0], proj.means2d[:, 1], proj.depths,
+                        proj.radii, r, proj.valid.float()], dim=-1).detach()
+
+
+def _from_binning_rows(full: torch.Tensor) -> ProjectedGaussians:
+    return ProjectedGaussians(means2d=full[:, :2], conics=None,
+                              depths=full[:, 2], radii=full[:, 3],
+                              valid=full[:, 5] > 0, cull_radii=full[:, 4])
+
+
 def gather_projection(proj: ProjectedGaussians, mesh) -> ProjectedGaussians:
     """What binning reads of every rank's rows of a row-sharded projection
     (``parallel.mesh.Mesh``), all-gathered in rank order and detached:
     means, depths, radii, cull radii and validity.  Binning is replicated:
     every rank sorts all the Gaussians' keys, as in the JAX package."""
-    r = proj.radii if proj.cull_radii is None else proj.cull_radii
-    local = torch.stack([proj.means2d[:, 0], proj.means2d[:, 1], proj.depths,
-                         proj.radii, r, proj.valid.float()], dim=-1).detach()
-    full = mesh.gather_rows(local)
-    return ProjectedGaussians(means2d=full[:, :2], conics=None,
-                              depths=full[:, 2], radii=full[:, 3],
-                              valid=full[:, 5] > 0, cull_radii=full[:, 4])
+    return _from_binning_rows(mesh.gather_rows(_binning_rows(proj)))
+
+
+def gather_scene_projections(projs, mesh) -> list:
+    """``gather_projection`` of each of S scenes' projections, all of one
+    capacity, through one gather (``Mesh.gather_scene_rows``)."""
+    full = mesh.gather_scene_rows(torch.stack([_binning_rows(p)
+                                               for p in projs]))
+    return [_from_binning_rows(f) for f in full]

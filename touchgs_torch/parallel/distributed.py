@@ -13,7 +13,8 @@ helpers (port of ``touchgs_tpu/parallel/distributed.py``).
   With nothing set it does nothing and returns False, as in the JAX
   package; an initialization that was asked for and fails raises (the JAX
   package stays single-process instead).
-- ``global_mesh()``: a (data, model) mesh over every rank.
+- ``global_mesh()``: a (data, model) mesh over every rank, with a process
+  group for each of its axes.
 - ``local_batch_slice()``: which items of a global work list this process
   takes (each process reads only its share of the views).
 
@@ -99,7 +100,9 @@ def _world() -> tuple:
 
 def global_mesh(model: int = 1) -> Mesh:
     """A (data, model) mesh over every rank of the world (one rank when no
-    process group is initialized)."""
+    process group is initialized), with the process groups of its two
+    axes (``Mesh.axis``).  Every rank calls it, in the same order
+    (``make_mesh``)."""
     n = _world()[1]
     if n % model:
         raise ValueError(f"{n} ranks not divisible by model={model}")

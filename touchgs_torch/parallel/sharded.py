@@ -88,28 +88,31 @@ def make_sharded_train_step(cfg: TrainConfig, mesh: Mesh,
     return step_fn
 
 
+def map_state(state: TrainState, fn) -> TrainState:
+    """``state`` with each tensor leaf ``x`` of its parameters, Adam state
+    and densify statistics replaced by ``fn(dotted name, x)`` (the names of
+    ``mesh.named_leaves``); the step and the pose deltas are kept."""
+    p = state.params
+    opt = state.opt_state
+    return TrainState(
+        params=GaussianParams(**{k.name: fn(f"params.{k.name}",
+                                            getattr(p, k.name))
+                                 for k in dataclasses.fields(p)}),
+        opt_state=FusedAdamState(
+            count=fn("opt_state.count", opt.count),
+            mu={k: fn(f"opt_state.mu.{k}", v) for k, v in opt.mu.items()},
+            nu={k: fn(f"opt_state.nu.{k}", v) for k, v in opt.nu.items()}),
+        densify=DensifyState(*(fn(f"densify.{k.name}",
+                                  getattr(state.densify, k.name))
+                               for k in dataclasses.fields(DensifyState))),
+        step=state.step, pose_deltas=state.pose_deltas)
+
+
 def _map_rows(state: TrainState, fn) -> TrainState:
     """``state`` with ``fn`` applied to every leaf whose leading axis is
     the capacity (``state_shardings``), the other leaves shared."""
     rows = {k for k, v in state_shardings(state).items() if v}
-
-    def f(name, x):
-        return fn(x) if name in rows else x
-
-    p = state.params
-    opt = state.opt_state
-    return TrainState(
-        params=GaussianParams(**{k.name: f(f"params.{k.name}",
-                                           getattr(p, k.name))
-                                 for k in dataclasses.fields(p)}),
-        opt_state=FusedAdamState(
-            count=opt.count,
-            mu={k: f(f"opt_state.mu.{k}", v) for k, v in opt.mu.items()},
-            nu={k: f(f"opt_state.nu.{k}", v) for k, v in opt.nu.items()}),
-        densify=DensifyState(*(f(f"densify.{k.name}",
-                                 getattr(state.densify, k.name))
-                               for k in dataclasses.fields(DensifyState))),
-        step=state.step, pose_deltas=state.pose_deltas)
+    return map_state(state, lambda name, x: fn(x) if name in rows else x)
 
 
 def shard_state(state: TrainState, mesh: Mesh) -> TrainState:

@@ -10,12 +10,22 @@ and the wall-clock of each.  On CUDA every render goes through the tile
 kernels, the S scenes of a step through one launch of each; with
 ``--device cpu`` through the scan path.
 
+``--data D --model M`` trains the batch over a D × M mesh of processes, as
+the JAX tool does on its ``data=4, model=2`` mesh: scenes on ``data``,
+each scene's Gaussians and tiles on ``model``.  Run it under ``torchrun``
+with D·M processes (NCCL, one process a GPU; gloo with ``--device
+cpu``).  A mesh that is not the world raises: without a process group,
+only ``--data 1 --model 1``.  Rank 0 prints, evaluates and runs the
+single-scene comparison.
+
     python -m touchgs_torch.tools.train_multiscene_demo            # the GPU
     python -m touchgs_torch.tools.train_multiscene_demo --device cpu --scenes 2 --steps 250
+    torchrun --nproc_per_node 4 -m touchgs_torch.tools.train_multiscene_demo --device cpu --data 2 --model 2
 
 It prints one JSON line a scene, then the markdown table; ``--out FILE``
 also appends the table to FILE (nothing is written otherwise).
-``main(argv)`` returns the rows and the times.
+``main(argv)`` returns the rows and the times (on ranks other than 0,
+the alive counts alone).
 """
 from __future__ import annotations
 
@@ -34,11 +44,16 @@ from touchgs_torch.data.scene import Scene
 from touchgs_torch.models.gaussians import GaussianParams, init_from_points
 from touchgs_torch.models.splatfacto import render
 from touchgs_torch.ops.sh import rgb_to_sh_dc
+from touchgs_torch.parallel.distributed import init_distributed
+from touchgs_torch.parallel.mesh import make_mesh
 from touchgs_torch.parallel.multiscene import (
+    alive_per_scene,
+    gather_multiscene_state,
     make_multiscene_state,
     make_multiscene_train_step,
     run_multiscene,
     scene_params,
+    shard_multiscene_state,
 )
 from touchgs_torch.tools.train_scale_demo import look_at_camera
 from touchgs_torch.train.optim import FusedAdam
@@ -163,6 +178,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="append the markdown table to this file")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the tile kernels) or cpu (the scan path)")
+    ap.add_argument("--data", type=int, default=1,
+                    help="mesh ranks over the scenes")
+    ap.add_argument("--model", type=int, default=1,
+                    help="mesh ranks over each scene's Gaussians and tiles")
     return ap.parse_args(argv)
 
 
@@ -172,10 +191,14 @@ def main(argv=None) -> dict:
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train_multiscene_demo wants a CUDA device and "
                            "none is available; pass --device cpu")
+    init_distributed(device=dev)
+    mesh = make_mesh(data=args.data, model=args.model)
+    lead = mesh.rank == 0
     use_pallas = dev.type == "cuda"
     S, steps = args.scenes, args.steps
     cfg = demo_cfg(steps, args.capacity, use_pallas)
-    print(f"building {S} scenes...", flush=True)
+    if lead:
+        print(f"building {S} scenes...", flush=True)
     scenes = [synthetic_scene(7 * s + 1, use_pallas=use_pallas, device=dev)
               for s in range(S)]
     n_views, W, H = len(scenes[0].cameras), scenes[0].cameras.width, \
@@ -186,9 +209,10 @@ def main(argv=None) -> dict:
                                device=dev)
               for s, sc in enumerate(scenes)]
     opt = FusedAdam(cfg.optim)
-    state = make_multiscene_state(params, cfg, opt)
-    step = make_multiscene_train_step(cfg, opt)
-    alive0 = state.params.alive.sum(dim=-1).tolist()
+    state = shard_multiscene_state(make_multiscene_state(params, cfg, opt),
+                                   mesh)
+    step = make_multiscene_train_step(cfg, opt, mesh)
+    alive0 = alive_per_scene(state, mesh).tolist()
     view_rng = np.random.default_rng(123)
 
     def batch_fn(step_i, rng):
@@ -200,10 +224,16 @@ def main(argv=None) -> dict:
     t0 = time.perf_counter()
     state, _ = run_multiscene(state, cfg, step, batch_fn, steps=steps,
                               n_train_views=n_views,
-                              log_fn=lambda m: print(m, flush=True))
+                              log_fn=(lambda m: print(m, flush=True))
+                              if lead else None, mesh=mesh)
     _sync(dev)
     ms_s = time.perf_counter() - t0
+    state = gather_multiscene_state(state, mesh)
     alive1 = state.params.alive.sum(dim=-1).tolist()
+    if alive1 == alive0:
+        raise RuntimeError("multi-scene densification never fired")
+    if not lead:
+        return {"alive": alive1}
     ms_psnr = [mean_psnr(scene_params(state.params, s), sc, cfg, dev)
                for s, sc in enumerate(scenes)]
 
@@ -223,8 +253,6 @@ def main(argv=None) -> dict:
              "single_psnr": ss_psnr[s]} for s in range(S)]
     for r in rows:
         print(json.dumps(r), flush=True)
-    if alive1 == alive0:
-        raise RuntimeError("multi-scene densification never fired")
     table = "\n".join(
         f"| {r['scene']} | {r['alive0']} | {r['ms_alive']} | "
         f"{r['single_alive']} | {r['ms_psnr']:.2f} dB | "
@@ -234,7 +262,8 @@ def main(argv=None) -> dict:
 ## Multi-scene batch training with per-scene densification
 
 `python -m touchgs_torch.tools.train_multiscene_demo`: {S} synthetic scenes
-({n_views} views of {W}x{H}) trained at once on `{args.device}`
+({n_views} views of {W}x{H}) trained at once on `{args.device}` over a
+data={mesh.data} × model={mesh.model} mesh of {mesh.size} process(es)
 ({steps} steps, capacity {args.capacity}) against a single-scene `Trainer`
 run of each.  Multi-scene {ms_s:.1f} s for all {S} scenes together
 ({steps / ms_s:.2f} batched it/s); the {S} single runs {ss_s:.1f} s.
@@ -252,3 +281,5 @@ run of each.  Multi-scene {ms_s:.1f} s for all {S} scenes together
 
 if __name__ == "__main__":
     main()
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
