@@ -182,6 +182,15 @@ Phases (any failure raises, and the script exits nonzero with no result):
    k_tile escalation from 128: eval PSNR within 0.1 dB, alive within 1%,
    the captures bounded (``launches_graph`` and
    ``launches_graph_trainer`` in the kernels line).
+4l. The experiment tools (``phase_tools``): the eight ports of the root
+   ``tools/exp_*.py`` under ``touchgs_torch/tools/``, each ``main`` at
+   TOOLS_ITERS calls a row, with the launch counters set to 0 just before
+   and read just after; each must exit 0 (``FAILED`` rows are printed as
+   findings).  ``exp_tile_size`` holds K2 and K3 against their plain
+   versions on the bench's tiles at its five geometries (32x32, 32x64,
+   64x64 at k_tile 2048 and 1024, 16x32), then the phase holds them at
+   12x12 (144 pixels, not a multiple of 32): K3 equal, K2's T row and
+   chunks_done equal, rgb/acc 3e-5, depth 3e-4.
 5. The profiling path: ``python -m touchgs_torch.tools.exp_kernel_anatomy
    --bf16``'s work (K4, the flagship's tiles at k_chunk 128, K2 with and
    without its exit, the four K5 ablations, the two K6 probe legs), with
@@ -208,7 +217,9 @@ Phases (any failure raises, and the script exits nonzero with no result):
    ``launches_graph_trainer``, ``parallel_max_abs_err``
    (phase 4h's errors
    against plain) and, under ``hard_scene``, their errors, times and
-   bounds at both of its k_tiles; K1-K4 also ``launches_bench``),
+   bounds at both of its k_tiles; K1-K4 also ``launches_bench``; K2 and
+   K3 also ``launches_tools`` and ``tile_sweep``, their largest error
+   against plain at each of phase 4l's geometries),
    then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -236,7 +247,11 @@ phase 4j alone, and
 
     python3 chip_smoke.py --graph
 
-phase 4k alone (its (b) on a scene written as phase 4d writes it).
+phase 4k alone (its (b) on a scene written as phase 4d writes it), and
+
+    python3 chip_smoke.py --tools
+
+phase 4l alone.
 
     python3 chip_smoke.py --ab OLD_CSRC
 
@@ -413,6 +428,12 @@ def sass_name(fn: str) -> str:
     if m:
         return (f"anatomy_{MODES[int(m.group(1))]}"
                 + (f"_p{m.group(2)}" if m.group(2) else ""))
+    m = re.search(r"composite_(fwd|bwd)_groups_kernelI(?:Lb(\d)E)?Li(\d)E",
+                  fn)
+    if m:
+        return (f"composite_{m.group(1)}_groups"
+                + ("_no_exit" if m.group(2) == "0" else "")
+                + f"_p{m.group(3)}")
     m = re.search(r"composite_fwd_kernelILb(\d)E(?:Li(\d)E)?", fn)
     if m:
         return ("composite_fwd" + ("" if m.group(1) == "1" else "_no_exit")
@@ -500,7 +521,9 @@ def print_launch_shapes(cuda_build) -> None:
     """Pixels per thread, threads, registers and resident blocks per SM of
     the kernels in K2's thread shape (K2, K3 at k_chunk 64, the K5 modes at
     the anatomy's 128), for the flagship's 32x32 tiles and for 16x16 tiles;
-    at least 2 resident blocks per SM for 32x32."""
+    at least 2 resident blocks per SM for 32x32.  Then K2's and K3's group
+    kernels at 144 and 4096 pixels and at the cap, at k_chunk 64 and 256,
+    beside the card's opt-in shared memory a block: each must fit."""
     from touchgs_torch.ops.anatomy import MODES
 
     shapes = [("composite_fwd", 1, 64, "composite_fwd"),
@@ -517,6 +540,22 @@ def print_launch_shapes(cuda_build) -> None:
                 check(info["blocks_per_sm"] >= 2,
                       f"{label}: {info['blocks_per_sm']} resident blocks "
                       f"per SM, want at least 2")
+    # the group kernels (tiles over 1024 pixels or not whole warps), up to
+    # the cap, ROADMAP C40
+    from touchgs_torch.ops.rasterize_cuda import MAX_TILE_PIXELS
+
+    props = torch.cuda.get_device_properties(0)
+    optin = getattr(props, "shared_memory_per_block_optin", None)
+    print(f"  shared memory a block, opt-in limit: {optin} bytes")
+    for npix in (144, 4096, MAX_TILE_PIXELS):
+        for name, variant, _, label in shapes[:3]:
+            for k_chunk in (64, 256):
+                info = cuda_build.kernel_info(name, npix, k_chunk, variant)
+                print(f"  shape {label} (groups) at {npix} px, k_chunk "
+                      f"{k_chunk}: " + ", ".join(f"{k} {v}"
+                                                 for k, v in info.items()))
+                check(info["blocks_per_sm"] >= 1,
+                      f"{label} at {npix} px does not fit on an SM")
 
 
 def phase_build() -> tuple:
@@ -3687,6 +3726,65 @@ def phase_bench(card: str, train_step_ms: float | None = None,
     return counts
 
 
+# the experiment tools of touchgs_torch/tools/ that phase 4l runs, and the
+# measured calls a row of each at that run
+TOOLS = ("exp_tile_size", "exp_kernels", "exp_kernels2", "exp_scatter",
+         "exp_scatter2", "exp_tail", "exp_tail2", "exp_tail3")
+TOOLS_ITERS = 3
+
+
+def geometry_name(geo) -> str:
+    th, tw, k_tile, tcap = geo
+    return f"{th}x{tw} k={k_tile} tcap={tcap}"
+
+
+def phase_tools(card: str) -> dict:
+    """Phase 4l: the eight experiment tools, each ``main(["--iters",
+    TOOLS_ITERS])`` in this process with the launch counters set to 0 just
+    before the first and read just after the last; each must exit 0 (a
+    ``FAILED`` row is a finding, printed; a failed hold of
+    ``exp_tile_size`` exits 1).  ``exp_tile_size`` holds K2 and K3 against
+    their plain versions on the bench's tiles at each of its five
+    geometries; then K2 and K3 are held on the bench's tiles at
+    ``exp_tile_size.ODD_GEOMETRY``, a tile that is not a multiple of 32:
+    K3 equal, K2's T row and chunks_done equal, rgb/acc 3e-5, depth 3e-4.
+    Returns the tools' launch counts and each geometry's errors of K2
+    (``composite_fwd``) and K3 (``composite_bwd``)."""
+    import importlib
+
+    from touchgs_torch.ops import rasterize_cuda as rc
+    from touchgs_torch.tools import exp_tile_size as ts
+
+    t0 = time.perf_counter()
+    zero_launches()
+    sweep = {}
+    for name in TOOLS:
+        tool = importlib.import_module(f"touchgs_torch.tools.{name}")
+        out: dict = {}
+        t = time.perf_counter()
+        code = tool.main(["--iters", str(TOOLS_ITERS)], out=out)
+        rows = out.get("rows", {})
+        failed = [k for k, v in rows.items() if isinstance(v, str)
+                  or isinstance(v, dict) and "failed" in v]
+        print(f"tools: {name} exit {code} in {time.perf_counter() - t:.1f} "
+              f"s; FAILED rows: {failed or 'none'}", flush=True)
+        check(code == 0, f"{name} exited {code}")
+        if name == "exp_tile_size":
+            sweep = {geometry_name(g): r["hold"] for g, r in rows.items()}
+    counts = dict(rc.launches)
+    h = ts.hold(ts.Scene.bench(), ts.config(*ts.ODD_GEOMETRY))
+    print(f"tools: {geometry_name(ts.ODD_GEOMETRY)} (not a multiple of 32):")
+    ts.print_hold(h)
+    check(h["ok"], f"K2 or K3 differs from plain at {ts.ODD_GEOMETRY}")
+    sweep[geometry_name(ts.ODD_GEOMETRY)] = h
+    print(f"tools: launches over the tools {counts}; phase 4l "
+          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
+    return dict(counts=counts, errors={
+        "composite_fwd": {g: max(h["k2_rgba"], h["k2_depth"])
+                          for g, h in sweep.items()},
+        "composite_bwd": {g: h["k3"] for g, h in sweep.items()}})
+
+
 def pool_bytes(pool) -> int:
     """Bytes the caching allocator holds in the CUDA-graph memory pool
     ``pool`` (its segments in ``torch.cuda.memory_snapshot``)."""
@@ -3979,6 +4077,12 @@ def main() -> int:
         phase_sensor(card())
         phase_nerf(card())
         return 0
+    if sys.argv[1:] == ["--tools"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(card(), flush=True)
+        phase_tools(card())
+        return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--ab":
         print(card(), flush=True)
         phase_ab(torch.device("cuda"), sys.argv[2])
@@ -4026,6 +4130,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     bench_counts = phase_bench(card_name, step_ms)
     torch.cuda.empty_cache()
+    tools = phase_tools(card_name)
+    torch.cuda.empty_cache()
     path_counts, x, probe = phase_anatomy_path()
     kernels += [k4] + phase_anatomy(x, probe, loops)
     # a kernel of the training path counts its launches there, any other
@@ -4051,6 +4157,9 @@ def main() -> int:
             k["parallel_max_abs_err"] = parallel["errors"]
         if k["name"] in bench_counts:  # K1-K4
             k["launches_bench"] = bench_counts[k["name"]]
+        if k["name"] in tools["errors"]:  # K2, K3
+            k["launches_tools"] = tools["counts"][k["name"]]
+            k["tile_sweep"] = tools["errors"][k["name"]]
     print(f"chip_smoke: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

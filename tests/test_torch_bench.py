@@ -249,7 +249,12 @@ def _headline(r) -> dict:
     h = json.loads(lines[0])
     assert h["metric"] == "train_iters_per_sec_800x800_100k_gaussians"
     assert h["unit"] == "iters/sec"
-    assert h["vs_baseline"] == round(h["value"] / 20.0, 3)
+    # the program rounds the raw rate r twice (value = round(r, 3),
+    # vs_baseline = round(r / 20, 3)), so vs_baseline is round(r / 20, 3)
+    # for some r that rounds to value
+    lo = round((h["value"] - 5e-4) / 20.0, 3)
+    hi = round((h["value"] + 5e-4) / 20.0, 3)
+    assert lo <= h["vs_baseline"] <= hi, h
     return h
 
 

@@ -451,6 +451,83 @@ def test_composite_launch_shapes(cuda_device, npix):
                                                                       info)
 
 
+# tiles the group kernels take: over 1024 pixels, or not a multiple of 32
+GROUP_TILES = [(32, 64), (64, 64), (16, 128), (12, 12), (8, 6), (40, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("early_exit", [True, False], ids=["exit", "noexit"])
+@pytest.mark.parametrize("th,tw", GROUP_TILES)
+def test_group_kernels_match_plain(cuda_device, th, tw, early_exit):
+    """K2 and K3 at tile shapes the register kernels cannot take, on
+    ``saturating_tiles`` of that shape: K2's chunks_done and T row equal to
+    the plain version's, rgb/acc 3e-5, depth 3e-4; K3 equal to its plain
+    version (``torch.equal``), which sums in the group kernel's order;
+    each counts one launch."""
+    dev = cuda_device
+    at_np, counts_np = saturating_tiles(th=th, tw=tw)
+    at = torch.as_tensor(at_np, device=dev)
+    nc = torch.as_tensor((counts_np + K_CHUNK - 1) // K_CHUNK, device=dev)
+    tids = torch.arange(N_TILES, dtype=torch.int32, device=dev)
+    args = (nc, tids, at, th, tw, K_TILE, K_CHUNK, N_TX, RasterizeConfig())
+    before = dict(rc.launches)
+    fwd = rc.forward_tiles(*args, early_exit=early_exit)
+    fwd_p = plain.forward_tiles_plain(*args, early_exit=early_exit)
+    torch.cuda.synchronize()
+    assert fwd.shape == (N_TILES, plain.ROWS, th * tw)
+    assert torch.equal(fwd[:, plain.ROW_DONE], fwd_p[:, plain.ROW_DONE])
+    assert torch.equal(fwd[:, plain.ROW_T], fwd_p[:, plain.ROW_T])
+    torch.testing.assert_close(fwd[:, 3], fwd_p[:, 3], atol=3e-4, rtol=0)
+    torch.testing.assert_close(fwd[:, [0, 1, 2, 4]], fwd_p[:, [0, 1, 2, 4]],
+                               atol=3e-5, rtol=0)
+    assert float(fwd[:, 4].max()) > 0.5
+    done = fwd[:, plain.ROW_DONE, 0].to(torch.int32).contiguous()
+    if not early_exit:
+        assert torch.equal(done, torch.clamp(nc, max=K_TILE // K_CHUNK))
+    g = torch.randn(fwd.shape, device=dev,
+                    generator=torch.Generator(dev).manual_seed(0))
+    bargs = (done, tids, at, fwd, g, th, tw, K_TILE, K_CHUNK, N_TX,
+             RasterizeConfig())
+    d = rc.backward_tiles(*bargs)
+    d_p = plain.backward_tiles_plain(*bargs)
+    torch.cuda.synchronize()
+    assert rc.launches["composite_fwd"] == before["composite_fwd"] + 1
+    assert rc.launches["composite_bwd"] == before["composite_bwd"] + 1
+    assert float(d.abs().max()) > 0
+    assert torch.equal(d, d_p), float((d - d_p).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("npix", [35, 48, 144, 1600, 2048, 4096, 16384])
+def test_group_kernel_launch_shapes(cuda_device, npix):
+    """The group kernels run ``tile_threads`` threads of
+    ``pixels_per_thread`` pixels, as the plain version computes them, and
+    fit on an SM at every shape up to the cap with k_chunk 64 and 256."""
+    for k_chunk in (64, 256):
+        for name, variant in (("composite_fwd", 1), ("composite_fwd", 0),
+                              ("composite_bwd", 0)):
+            info = cuda_build.kernel_info(name, npix, k_chunk, variant)
+            assert info["pixels_per_thread"] == plain.pixels_per_thread(npix)
+            assert info["threads"] == plain.tile_threads(npix), (name, info)
+            assert info["blocks_per_sm"] >= 1, (name, info)
+
+
+@pytest.mark.cuda
+def test_tile_limits_raise_on_card(cuda_device):
+    """K2 and K3 refuse a tile past ``MAX_TILE_PIXELS`` and K5 one that is
+    not whole warps, before any launch."""
+    dev = cuda_device
+    at = torch.zeros((1, K_TILE, plain.A), device=dev)
+    one = torch.ones((1,), dtype=torch.int32, device=dev)
+    cfg = RasterizeConfig()
+    before = dict(rc.launches)
+    with pytest.raises(ValueError, match=str(rc.MAX_TILE_PIXELS)):
+        rc.forward_tiles(one, one * 0, at, 129, 128, K_TILE, K_CHUNK, 1, cfg)
+    with pytest.raises(ValueError, match="K5"):
+        anatomy.variant("full", one, one * 0, at, 12, 12, K_TILE, 128, 1, cfg)
+    assert rc.launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("k_tile", [128, 512, 8192])
 @pytest.mark.parametrize("case", ["scene", "saturating"])

@@ -29,13 +29,52 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// Pixels per thread of K2, K3 and K5: 4 where npix / 4 threads make whole warps,
-// else 2, else 1 (every multiple of 32 takes one of them).  Thread q of the
-// npix / P threads owns pixels q, q + S, …, q + (P − 1)·S with S = npix / P,
+// Tiles of whole warps and at most 1024 pixels run the register kernels of
+// K2, K3 and K5: P pixels per thread, 4 where npix / 4 threads make whole
+// warps, else 2, else 1 (every such tile takes one of them), in npix / P
+// threads.  Thread q owns pixels q, q + S, …, q + (P − 1)·S with S = npix / P,
 // so each of its P loads of a per-pixel row is coalesced across the warp.
-// rasterize_plain.pixels_per_thread is the same rule.
+__host__ __device__ constexpr bool whole_warps(int npix) {
+  return npix % 32 == 0 && npix <= 1024;
+}
+
+// Every other tile (over 1024 pixels, or not a multiple of 32) runs the
+// group kernels of K2 and K3: kGroupP pixels per thread in group_threads(npix)
+// threads, at most kGroupThreads, so a group covers G = kGroupP · threads
+// pixels and the tile is walked in pixel_groups(npix) groups.  Thread q owns
+// pixels g·G + q + j·threads of group g (j < kGroupP); pixels past npix are
+// masked: they read nothing, write nothing and add exact zeros to K3's sums.
+// K5 takes whole-warp tiles only.
+constexpr int kGroupP = 4, kGroupThreads = 256;
+
+__host__ __device__ constexpr int group_threads(int npix) {
+  const int warps = (npix + 32 * kGroupP - 1) / (32 * kGroupP);
+  return warps * 32 < kGroupThreads ? warps * 32 : kGroupThreads;
+}
+
 __host__ __device__ constexpr int pixels_per_thread(int npix) {
-  return npix % 128 == 0 ? 4 : (npix % 64 == 0 ? 2 : 1);
+  return !whole_warps(npix) ? kGroupP
+         : npix % 128 == 0  ? 4
+         : npix % 64 == 0   ? 2
+                            : 1;
+}
+
+// Threads a block of K2, K3 or K5 for npix-pixel tiles.
+__host__ __device__ constexpr int tile_threads(int npix) {
+  return whole_warps(npix) ? npix / pixels_per_thread(npix)
+                           : group_threads(npix);
+}
+
+__host__ __device__ constexpr int pixel_groups(int npix) {
+  return whole_warps(npix)
+             ? 1
+             : (npix + kGroupP * group_threads(npix) - 1) /
+                   (kGroupP * group_threads(npix));
+}
+
+// Pixel j of thread q of S in group g of a group kernel's tile.
+__device__ __forceinline__ int group_pixel(int g, int j, int q, int S) {
+  return (g * kGroupP + j) * S + q;
 }
 
 // Let `kernel` use `smem` bytes of dynamic shared memory: above 48 KB it
@@ -48,13 +87,13 @@ inline cudaError_t allow_smem(const void* kernel, size_t smem) {
 }
 
 // Launch a K2, K3 or K5 instance for npix-pixel tiles: one block per tile of
-// npix / pixels_per_thread(npix) threads.  Returns the CUDA error.
+// tile_threads(npix) threads.  Returns the CUDA error.
 inline int launch_tiles(const void* kernel, void** args, int n_tiles,
                         int npix, size_t smem, void* stream) {
   cudaError_t err = allow_smem(kernel, smem);
   if (err == cudaSuccess && n_tiles > 0)
     err = cudaLaunchKernel(kernel, dim3(n_tiles),
-                           dim3(npix / pixels_per_thread(npix)), args, smem,
+                           dim3(tile_threads(npix)), args, smem,
                            static_cast<cudaStream_t>(stream));
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
@@ -63,7 +102,7 @@ inline int launch_tiles(const void* kernel, void** args, int n_tiles,
 // dynamic shared bytes: out = [pixels per thread, threads, registers,
 // resident blocks per SM, shared bytes].  Returns the CUDA error.
 inline int launch_info(const void* kernel, int npix, size_t smem, int* out) {
-  const int threads = npix / pixels_per_thread(npix);
+  const int threads = tile_threads(npix);
   cudaFuncAttributes attr;
   int blocks = 0;
   cudaError_t err = allow_smem(kernel, smem);

@@ -90,6 +90,9 @@ def variant(mode: str, n_chunks, tile_ids, attrs_tiled, th, tw, k_tile,
     _check_geometry(th, tw, k_tile, k_chunk)
     n_tiles = attrs_tiled.shape[0]
     npix = th * tw
+    if not plain.whole_warps(npix):
+        raise ValueError(f"tile {th}x{tw}: K5 wants a multiple of 32 pixels, "
+                         f"at most 1024")
     check_tensor(n_chunks, "n_chunks", torch.int32, (n_tiles,))
     check_tensor(tile_ids, "tile_ids", torch.int32, (n_tiles,))
     check_tensor(attrs_tiled, "attrs_tiled", torch.float32,

@@ -11,8 +11,11 @@ Division of labour, as in the JAX package:
   attribute rows ``attrs[gidx]`` the compositing kernels read.
   ``slot_lists`` is the same kernel writing ``gidx`` alone.
 - **K2** ``forward_tiles`` (``csrc/composite_fwd.cu``): front-to-back
-  compositing of each 32x32 tile with the two-chunks-stale tile-wide exit;
-  row 6 of its output records the chunks composited.
+  compositing of each tile with the two-chunks-stale tile-wide exit; row 6
+  of its output records the chunks composited.  Any tile shape up to
+  ``MAX_TILE_PIXELS`` pixels, as the JAX kernels take any: whole-warp tiles
+  of at most 1024 pixels (the flagship's 32x32) run the register kernels,
+  the others the group kernels.
 - **K3** ``backward_tiles`` (``csrc/composite_bwd.cu``): replays exactly
   those chunks and emits per-(tile, slot) attribute gradients.
 
@@ -55,6 +58,9 @@ from touchgs_torch.ops.tiles import (TileBins, bin_gaussians,
 
 _LOG2E = 1.4426950408889634
 _DMA_ALIGN = 128  # k_tile stays a multiple of this, as in the JAX package
+# the largest tile K2 and K3 take: K3's group kernel keeps a pixel's T and
+# S_u in shared memory (ROADMAP C40)
+MAX_TILE_PIXELS = 16384
 
 # kernel launches by wrapper; only a launch of the CUDA kernel counts.  A
 # live viewer renders on another thread than training, so the counts are
@@ -103,10 +109,13 @@ def add_launches(counts: dict) -> None:
 
 
 def _check_geometry(th, tw, k_tile, k_chunk):
+    """K2's and K3's tile limits: any tile of 1 to MAX_TILE_PIXELS pixels
+    (the group kernels keep 8 bytes a pixel in shared memory, ROADMAP C40),
+    k_tile a multiple of k_chunk."""
     npix = th * tw
-    if npix % 32 or npix > 1024:
-        raise ValueError(f"tile {th}x{tw}: the kernels want a multiple of 32 "
-                         f"pixels, at most 1024")
+    if th < 1 or tw < 1 or npix > MAX_TILE_PIXELS:
+        raise ValueError(f"tile {th}x{tw}: the compositing kernels take 1 to "
+                         f"{MAX_TILE_PIXELS} pixels a tile (MAX_TILE_PIXELS)")
     if k_tile % k_chunk:
         raise ValueError(f"k_tile={k_tile} is not a multiple of "
                          f"k_chunk={k_chunk}")
@@ -180,10 +189,19 @@ class _SlotRows(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad_rows, _):
         gidx, = ctx.saved_tensors
-        dattrs = grad_rows.new_zeros(ctx.attrs_shape)
-        torch.ops.aten._index_put_impl_(dattrs, (gidx,), grad_rows,
-                                        accumulate=True, unsafe=True)
-        return dattrs, None, None, None, None, None, None, None
+        return (scatter_rows(grad_rows, gidx, ctx.attrs_shape), None, None,
+                None, None, None, None, None)
+
+
+def scatter_rows(grad_rows, gidx, attrs_shape) -> torch.Tensor:
+    """The gather ``attrs[gidx]``'s VJP: ``grad_rows`` (n_tiles, k_tile, 16)
+    scatter-added by ``gidx`` into a zero table of ``attrs_shape``, with
+    duplicate indices, through ``index_put_``'s accumulating call without
+    its range check of the indices."""
+    dattrs = grad_rows.new_zeros(attrs_shape)
+    torch.ops.aten._index_put_impl_(dattrs, (gidx,), grad_rows,
+                                    accumulate=True, unsafe=True)
+    return dattrs
 
 
 def forward_tiles(n_chunks, tile_ids, attrs_tiled, th, tw, k_tile, k_chunk,

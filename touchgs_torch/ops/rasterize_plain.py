@@ -132,38 +132,75 @@ def forward_tiles_plain(n_chunks, tile_ids, attrs_tiled, th, tw, k_tile,
     return torch.stack(rows, dim=1)
 
 
+GROUP_P, GROUP_THREADS = 4, 256   # the group kernels' thread shape
+
+
+def whole_warps(npix: int) -> bool:
+    """True for tiles the register kernels take: a multiple of 32 pixels,
+    at most 1024.  Every other tile runs the group kernels
+    (``csrc/composite_common.cuh``)."""
+    return npix % 32 == 0 and npix <= 1024
+
+
 def pixels_per_thread(npix: int) -> int:
-    """Pixels each thread of K2 and K3 owns: 4 where npix / 4 threads make
-    whole warps, else 2, else 1 (``csrc/composite_common.cuh``)."""
+    """Pixels each thread of K2 and K3 owns (in each pixel group): for
+    whole-warp tiles 4 where npix / 4 threads make whole warps, else 2, else
+    1; 4 in the group kernels (``csrc/composite_common.cuh``)."""
+    if not whole_warps(npix):
+        return GROUP_P
     return 4 if npix % 128 == 0 else 2 if npix % 64 == 0 else 1
+
+
+def tile_threads(npix: int) -> int:
+    """Threads a block of K2 and K3: npix / P for whole-warp tiles, else
+    whole warps for ceil(npix / 4) pixels, at most 256."""
+    if whole_warps(npix):
+        return npix // pixels_per_thread(npix)
+    warps = -(-npix // (32 * GROUP_P))
+    return min(32 * warps, GROUP_THREADS)
+
+
+def pixel_groups(npix: int) -> int:
+    """Groups of P·threads pixels that cover the tile (1 for whole-warp
+    tiles); thread q owns pixel g·P·threads + j·threads + q of group g."""
+    return -(-npix // (pixels_per_thread(npix) * tile_threads(npix)))
 
 
 def _block_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum over the last (pixel) axis in the backward kernel's order.
 
-    1. Thread q of the S = npix / P threads adds its pixels q, q + S, …,
-       q + (P − 1)·S in that order.
+    The tile is padded with zeros to whole pixel groups (``pixel_groups``;
+    one group and no padding for whole-warp tiles), the kernel's masked
+    pixels.  Then:
+
+    1. Thread q of the S = ``tile_threads`` threads adds its P pixels of a
+       group, g·P·S + q, g·P·S + q + S, …, in that order.
     2. Within each warp of 32 threads, a halving tree over lane bits 4, 3
        and 2 (lane i + lane i+16, then +8, then +4: the pairs of the
        kernel's reduce-scatter steps) leaves four partials, lanes 0..3.
-    3. Those partials are added one after another, warp by warp.
+    3. Those partials are added one after another, warp by warp, group by
+       group.
 
     The sums of the backward cancel heavily, so only the same order gives
     the kernel's result to the last bit."""
     npix = x.shape[-1]
-    p = pixels_per_thread(npix)
-    x = x.reshape(x.shape[:-1] + (p, npix // p))
-    s = x[..., 0, :]
+    p, s, groups = pixels_per_thread(npix), tile_threads(npix), \
+        pixel_groups(npix)
+    pad = groups * p * s - npix
+    if pad:
+        x = torch.nn.functional.pad(x, (0, pad))
+    x = x.reshape(x.shape[:-1] + (groups, p, s))
+    v = x[..., 0, :]
     for j in range(1, p):
-        s = s + x[..., j, :]
-    s = s.reshape(s.shape[:-1] + (-1, 32))
-    while s.shape[-1] > 4:
-        h = s.shape[-1] // 2
-        s = s[..., :h] + s[..., h:]
-    s = s.flatten(-2)
-    out = s[..., 0]
-    for i in range(1, s.shape[-1]):
-        out = out + s[..., i]
+        v = v + x[..., j, :]
+    v = v.reshape(v.shape[:-2] + (-1, 32))
+    while v.shape[-1] > 4:
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    v = v.flatten(-2)
+    out = v[..., 0]
+    for i in range(1, v.shape[-1]):
+        out = out + v[..., i]
     return out
 
 

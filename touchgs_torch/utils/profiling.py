@@ -13,7 +13,7 @@
   cores, because the port's K=8 contractions are fp32 FMAs, never TF32.
 - ``measure(fn, *args)``: mean seconds per call on the card, from CUDA
   events.  It raises without a card or on a CPU tensor; it never times on
-  the host clock.
+  the host clock.  ``timed_row`` prints an experiment tool's row from it.
 """
 from __future__ import annotations
 
@@ -160,6 +160,23 @@ def measure(fn: Callable, *args, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / 1e3 / iters
+
+
+def timed_row(rows: dict, name: str, fn: Callable, *args, iters: int = 20,
+              width: int = 28) -> float | None:
+    """Time ``fn(*args)`` on the card (``measure``) and print ``name`` with
+    its ms, as the JAX experiment tools print their rows; a call that
+    raises prints ``FAILED`` with the reason instead.  ``rows[name]`` gets
+    the ms or the ``FAILED`` line; returns the ms, or None."""
+    try:
+        ms = measure(fn, *args, iters=iters) * 1e3
+    except Exception as e:  # a failing row is a finding: print it, go on
+        rows[name] = f"FAILED: {type(e).__name__}: {str(e)[:150]}"
+        print(f"{name:<{width}} {rows[name]}", flush=True)
+        return None
+    rows[name] = ms
+    print(f"{name:<{width}} {ms:9.4f} ms", flush=True)
+    return ms
 
 
 def card() -> str:
