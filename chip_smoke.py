@@ -128,17 +128,28 @@ Phases (any failure raises, and the script exits nonzero with no result):
    gathers through NCCL) against the batch's (losses and PSNRs rtol 1e-5,
    parameters as before); K1-K3 on the batch's 2500-tile grid (the
    rank's slice of the packed grid on this model=1 mesh) against their
-   plain versions; then 25 steps of ``run_multiscene`` with two refines
-   and an opacity reset, unsharded (``launches_multiscene``: one of each kernel a step)
-   and on the mesh (``launches_multiscene_mesh``, the same), in turns
-   (batch, mesh, mesh, batch) with their step medians, the mesh run's
-   alive counts and losses against the batch run's; four single-scene
-   ``Trainer`` runs of the same schedule, and the peak memory. (c) One
-   flagship step with the tile grid in 4 slices in one process and one in
-   the NCCL world of one, each against the unsharded step within the same
-   tolerances (``launches_sharded``); K1's lists of each slice (``tile0``)
-   equal the global lists' slice, and K1-K3 on the last slice against
-   plain; the three steps timed in turns; ``scaling_bench`` at a world of
+   plain versions (these step-1 checks run the steps eagerly, their
+   ``__wrapped__``); then 25 steps of ``run_multiscene`` with two refines
+   and an opacity reset, eager, unsharded (``launches_multiscene``: one of
+   each kernel a step) and on the mesh (``launches_multiscene_mesh``, the
+   same), the mesh run's alive counts and losses against the batch run's;
+   then the same 25 steps graphed (``train/graphs.py``), unsharded
+   (``launches_multiscene_graph``) and on the mesh with its NCCL gathers
+   captured (``launches_mesh_graph``), each against its eager run (losses
+   and PSNRs rtol 1e-3, alive counts and every state tensor equal), one
+   capture a run and none at the refines and the reset; the graphed runs
+   timed in turns (batch, mesh, four graphed single-scene ``Trainer`` runs
+   of the same schedule, the four again, mesh, batch), printed as a ratio
+   of scene-steps, with the first step (capture), the graph pool and the
+   peak memory. (c) One flagship step with the tile grid in 4 slices in
+   one process and one in the NCCL world of one, run eagerly, each against
+   the unsharded step within the same tolerances (``launches_sharded``);
+   K1's lists of each slice (``tile0``) equal the global lists' slice, and
+   K1-K3 on the last slice against plain; each of the two graphed against
+   its eager step over SHARD_HOLD steps (losses rtol 1e-3, every state
+   tensor equal, one capture; ``launches_sharded_graph``), with the
+   capture's time and the pool; the five steps (unsharded graphed, the two
+   eager, the two graphed) timed in turns; ``scaling_bench`` at a world of
    one.
 4i. The native layer (``phase_native``; host C++, no kernel of the
    port's): the library and both capture tools built with ``make`` from
@@ -167,7 +178,8 @@ Phases (any failure raises, and the script exits nonzero with no result):
    k_tile 1024, its total pairs equal to the flagship's binning, and the
    pairs it keeps at the default k_tile 512.
 4k. The compiled step (``train/graphs.py``; ``make_train_step`` returns
-   it on the card, so phases 3, 4, 4d and 4j already run it): (a) right
+   it on the card, with or without SO3xR3 and ``tile_shards``, so phases
+   3, 4, 4d (its SO3xR3 run too) and 4j already run it): (a) right
    after phase 4, from two copies of the train phase's state,
    GRAPH_STEPS steps with the plain step (``__wrapped__``) and as many
    as a CUDA graph on the same views at SH degree 3, each step's loss and
@@ -181,7 +193,12 @@ Phases (any failure raises, and the script exits nonzero with no result):
    schedule with refines, an opacity reset, two SH-degree steps and a
    k_tile escalation from 128: eval PSNR within 0.1 dB, alive within 1%,
    the captures bounded (``launches_graph`` and
-   ``launches_graph_trainer`` in the kernels line).
+   ``launches_graph_trainer`` in the kernels line); then its SO3xR3 leg
+   (``phase_graph_pose``): a pose ``Trainer`` on the same scene, graphed
+   and eager, GRAPH_POSE_STEPS steps over every training view at SH 0 and
+   1: one capture per SH degree across every view, none eager, losses and
+   pose deltas rtol 1e-3 (``launches_pose_graph``), the pool; then the
+   graphed pose step timed in turns against the non-pose graphed step.
 4l. The experiment tools (``phase_tools``): the eight ports of the root
    ``tools/exp_*.py`` under ``touchgs_torch/tools/``, each ``main`` at
    TOOLS_ITERS calls a row, with the launch counters set to 0 just before
@@ -265,6 +282,7 @@ shapes (``phase_ab``), K5 on the anatomy's tiles and K6 on the probe's rows
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import re
 import sys
@@ -366,6 +384,10 @@ GRAPH_TRAIN_STEPS, GRAPH_K_TILE, GRAPH_LOG_EVERY = 300, 128, 10
 GRAPH_DENSIFY = dict(warmup_steps=50, refine_every=50,
                      reset_opacity_every=200)
 GRAPH_SH_INTERVAL = 100
+# phase 4k (b), the SO3xR3 leg: a pose Trainer on 4d's scene, graphed and
+# eager, GRAPH_POSE_STEPS steps over every training view at SH degrees 0
+# and 1; then GRAPH_TIMED steps a turn against the non-pose graphed step
+GRAPH_POSE_STEPS, GRAPH_POSE_SH_INTERVAL = 40, 20
 
 
 def bound(nbytes: float, fp32_ops: float = 0.0,
@@ -2857,6 +2879,7 @@ MS_SCENES, MS_STEPS, MS_VIEWS = 4, 25, 4
 # opacity reset at step 15
 MS_DENSIFY = dict(warmup_steps=5, refine_every=10, reset_opacity_every=15)
 SHARDS, SHARD_STEPS = 4, 10        # in-process tile slices; timed steps
+SHARD_HOLD = 5                     # graphed against eager steps
 
 
 def flagship_cfg(**kw):
@@ -3164,6 +3187,7 @@ def phase_multiscene(card: str, dev) -> tuple:
     from touchgs_torch.ops import rasterize_cuda as rc
     from touchgs_torch.parallel import multiscene as ms
     from touchgs_torch.parallel.mesh import make_mesh
+    from touchgs_torch.train.graphs import GraphedStep, state_tensors
     from touchgs_torch.train.optim import PARAM_GROUPS, FusedAdam
     from touchgs_torch.train.trainer import (TrainState, Trainer,
                                              make_train_step)
@@ -3205,8 +3229,11 @@ def phase_multiscene(card: str, dev) -> tuple:
     state = batch_state(False)
     step = ms.make_multiscene_train_step(cfg, opt)
     mesh_step = ms.make_multiscene_train_step(cfg, opt, mesh)
-    state, m = step(state, *batch([0] * S), 0)
-    single = make_train_step(cfg, opt)
+    check(isinstance(step, GraphedStep) and isinstance(mesh_step,
+                                                       GraphedStep),
+          "make_multiscene_train_step did not return a graphed step")
+    state, m = step.__wrapped__(state, *batch([0] * S), 0)
+    single = make_train_step(cfg, opt).__wrapped__
     for s in range(S):
         st, sm = single(single_state(data[s][0]), cams[s][0],
                         *(views[s][k][0] for k in range(3)), 0)
@@ -3214,7 +3241,8 @@ def phase_multiscene(card: str, dev) -> tuple:
                   sm["loss"], ms.scene_params(state.params, s), st.params,
                   cfg.optim)
     del st
-    mstate, mm = mesh_step(batch_state(True), *batch([0] * S), 0)
+    mstate, mm = mesh_step.__wrapped__(batch_state(True), *batch([0] * S),
+                                       0)
     full = ms.gather_multiscene_state(mstate, mesh)
     for k in ("loss_per_scene", "psnr_per_scene"):
         got, want = mm[k].double(), m[k].double()
@@ -3251,96 +3279,150 @@ def phase_multiscene(card: str, dev) -> tuple:
                            x["tile_counts"], x["tile_ids"], x["geom"])
     del x, shaded, projs, colors, opac, state, mstate
 
-    # 25 steps of the schedule, unsharded and on the mesh in turns
-    def schedule(on_mesh: bool) -> tuple:
-        events = {"refine": 0, "reset_opacity": 0}
+    # 25 steps of the schedule: eager and graphed, unsharded and on the
+    # mesh; the graphed batch and mesh timed in turns against four graphed
+    # single-scene Trainer runs
+    def schedule(on_mesh: bool, graphed: bool) -> dict:
+        ev = {"refine": 0, "reset_opacity": 0}
+        fn = mesh_step if on_mesh else step
         refine_fn = ms.make_multiscene_refine_step(
             cfg, mesh if on_mesh else None)
         reset_fn = ms.make_multiscene_reset_opacity_step(cfg)
+        captures = []
 
         def refine(*a, **k):
-            events["refine"] += 1
+            ev["refine"] += 1
+            captures.append(fn.events["capture"])
             return refine_fn(*a, **k)
 
         def reset(*a, **k):
-            events["reset_opacity"] += 1
+            ev["reset_opacity"] += 1
+            captures.append(fn.events["capture"])
             return reset_fn(*a, **k)
 
         st = batch_state(on_mesh)
         rng_views = np.random.default_rng(5)
-        stamps = []
+        stamps, logs = [], []
+
+        def log(m):
+            stamps.append(time.perf_counter())
+            logs.append(m["loss_per_scene"] + m["psnr_per_scene"])
+
+        c0 = fn.events["capture"]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         zero_launches()
         stamps.append(time.perf_counter())
         st, met = ms.run_multiscene(
-            st, cfg, mesh_step if on_mesh else step,
+            st, cfg, fn if graphed else fn.__wrapped__,
             lambda i, rng: (*batch(rng_views.integers(0, MS_VIEWS, S)),
                             min(i // cfg.sh_degree_interval, 3)),
             MS_STEPS, refine_fn=refine, reset_fn=reset,
-            n_train_views=MS_VIEWS,
-            log_fn=lambda m: stamps.append(time.perf_counter()),
+            n_train_views=MS_VIEWS, log_fn=log,
             mesh=mesh if on_mesh else None)
         torch.cuda.synchronize()
         counts = dict(rc.launches)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        name = (("graphed " if graphed else "")
+                + ("mesh" if on_mesh else "multi-scene"))
         want = {"slot_lists": 0, "slot_rows": MS_STEPS,
                 "composite_fwd": MS_STEPS, "composite_bwd": MS_STEPS}
-        name = "mesh" if on_mesh else "multi-scene"
         check(counts == want, f"{name} launches {counts}, want {want} "
               f"(one of each kernel a step for all {S} scenes)")
-        check(events["refine"] >= 1 and events["reset_opacity"] >= 1,
-              f"{name} schedule ran {events}")
+        check(ev["refine"] >= 1 and ev["reset_opacity"] >= 1,
+              f"{name} schedule ran {ev}")
         losses = met["loss_per_scene"].tolist()
         check(all(np.isfinite(losses)), f"{name} losses {losses}")
         alive = ms.alive_per_scene(st, mesh if on_mesh else None).tolist()
-        return (np.diff(stamps) * 1e3, counts, events, losses, alive, peak)
+        if graphed:  # one capture, before the first refine and reset
+            n = fn.events["capture"] - c0
+            check(n <= 1 and all(c == fn.events["capture"]
+                                 for c in captures),
+                  f"{name}: {n} captures, {captures} at the refines and "
+                  f"the reset")
+        ms_ = np.diff(stamps) * 1e3
+        return dict(ms=ms_, counts=counts, events=ev, losses=losses,
+                    alive=alive, logs=np.array(logs),
+                    peak=torch.cuda.max_memory_allocated() / 2 ** 30,
+                    state=[t.clone() for t in state_tensors(st)],
+                    first_s=ms_[0] / 1e3)
+
+    def singles() -> list:  # four graphed single-scene Trainer runs
+        out = []
+        for s, (p, scene) in enumerate(data):
+            tr = Trainer(scene, cfg)
+            tr.state = single_state(p)
+            tr.rng = np.random.default_rng(5 + s)
+            st = [time.perf_counter()]
+            tr.run(MS_STEPS, log_fn=lambda m: st.append(time.perf_counter()))
+            out.append(float(np.median(np.diff(st)[1:] * 1e3)))
+            del tr
+        return out
+
+    def same_run(name, got, ref) -> None:
+        rel = np.abs(got["logs"] - ref["logs"]) / np.abs(ref["logs"])
+        exact = all(bool(((a == b) | (a.isnan() & b.isnan())).all())
+                    for a, b in zip(got["state"], ref["state"]))
+        print(f"{name} against eager: {MS_STEPS} steps, losses and PSNRs "
+              f"at most {rel.max():.3e} apart (relative), alive "
+              f"{got['alive']} against {ref['alive']}, every state tensor "
+              f"equal: {exact}")
+        check(rel.max() <= 1e-3 and got["alive"] == ref["alive"] and exact,
+              f"{name} differs from its eager run")
 
     alive0 = [int(p.alive.sum()) for p, _ in data]
     runs = {}
-    for on_mesh in (False, True, True, False):
-        runs.setdefault(on_mesh, []).append(schedule(on_mesh))
+    for key in (("batch", False), ("mesh", False)):
+        runs[key] = schedule(key[0] == "mesh", False)
         torch.cuda.empty_cache()
-    (ms_ms, counts, events, losses, alive1, peak) = runs[False][0]
-    print(f"multi-scene: {S} scenes, {MS_STEPS} steps, {events}; alive "
-          f"{alive0} -> {alive1}; losses {[round(v, 5) for v in losses]}")
-    (_, counts_mesh, events_m, losses_m, alive_m, peak_m) = runs[True][0]
-    check(alive_m == alive1 and np.allclose(losses_m, losses, rtol=1e-5),
-          f"mesh run: alive {alive_m}, losses {losses_m}, against the "
-          f"batch's {alive1}, {losses}")
-    med = {k: float(np.median(np.concatenate([r[0] for r in v])))
-           for k, v in runs.items()}
-    turns = [float(np.median(runs[k][i][0]))
-             for k, i in ((False, 0), (True, 0), (True, 1), (False, 1))]
-    print(f"multi-scene mesh (data=1, model=1, NCCL world of one): "
-          f"{MS_STEPS} steps, {events_m}; alive {alive_m}; losses "
-          f"{[round(v, 5) for v in losses_m]}; launches {counts_mesh}; step "
-          f"median {med[True]:.3f} ms against the unsharded batch's "
-          f"{med[False]:.3f} ms ({med[True] / med[False]:.3f}x; batch, "
-          f"mesh, mesh, batch, {MS_STEPS} steps each, their medians "
-          f"{', '.join(f'{t:.3f}' for t in turns)} ms); kernels on its "
-          f"slice (the whole packed grid) at most {err:.3e} from plain; "
-          f"peak memory "
-          f"{peak_m:.2f} GiB; on {card}")
-
-    # four single-scene Trainer runs of the same schedule
-    single_ms = []
-    for s, (p, scene) in enumerate(data):
-        tr = Trainer(scene, cfg)
-        tr.state = single_state(p)
-        tr.rng = np.random.default_rng(5 + s)
-        st = [time.perf_counter()]
-        tr.run(MS_STEPS, log_fn=lambda m: st.append(time.perf_counter()))
-        single_ms.append(float(np.median(np.diff(st) * 1e3)))
-        del tr
-    single = float(np.mean(single_ms))
-    print(f"multi-scene: step median {med[False]:.3f} ms for {S} scenes "
-          f"({1e3 / med[False]:.2f} it/s, {S * 1e3 / med[False]:.2f} "
-          f"scene-steps/s); single-scene Trainer runs "
-          f"{[round(v, 3) for v in single_ms]} ms ({1e3 / single:.2f} it/s):"
-          f" {single * S / med[False]:.3f}x; one launch each of K1, K2, K3 "
-          f"a step; peak memory {peak:.2f} GiB; on {card}")
-    return counts, counts_mesh, err
+    times = {"batch": [], "mesh": [], "single": []}
+    first = {}
+    for turn in ("batch", "mesh", "single", "single", "mesh", "batch"):
+        if turn == "single":
+            times["single"].append(singles())
+        else:
+            r = schedule(turn == "mesh", True)
+            runs.setdefault((turn, True), r)
+            first.setdefault(turn, r["first_s"])
+            times[turn].append(r["ms"][1:])
+        torch.cuda.empty_cache()
+    eager, graph = runs[("batch", False)], runs[("batch", True)]
+    eager_m, graph_m = runs[("mesh", False)], runs[("mesh", True)]
+    print(f"multi-scene: {S} scenes, {MS_STEPS} steps, {eager['events']}; "
+          f"alive {alive0} -> {eager['alive']}; losses "
+          f"{[round(v, 5) for v in eager['losses']]}; eager step median "
+          f"{float(np.median(eager['ms'])):.3f} ms")
+    check(eager_m["alive"] == eager["alive"]
+          and np.allclose(eager_m["losses"], eager["losses"], rtol=1e-5),
+          f"mesh run: alive {eager_m['alive']}, losses "
+          f"{eager_m['losses']}, against the batch's {eager['alive']}, "
+          f"{eager['losses']}")
+    same_run("graphed multi-scene", graph, eager)
+    same_run("graphed mesh", graph_m, eager_m)
+    single = float(np.mean(times["single"]))
+    med = {k: float(np.median(np.concatenate(times[k])))
+           for k in ("batch", "mesh")}
+    med_e = {k: float(np.median(runs[(k, False)]["ms"]))
+             for k in ("batch", "mesh")}
+    for k, name in (("batch", "multi-scene"), ("mesh", "multi-scene mesh "
+                                                "(data=1, model=1, NCCL "
+                                                "world of one)")):
+        r = runs[(k, True)]
+        fn = step if k == "batch" else mesh_step
+        print(f"{name} graphed: step median {med[k]:.3f} ms for {S} scenes "
+              f"({S * 1e3 / med[k]:.2f} scene-steps/s) against "
+              f"{med_e[k]:.3f} ms eager ({med_e[k] / med[k]:.2f}x); four "
+              f"graphed single-scene Trainer runs "
+              f"{[round(float(v), 3) for v in np.mean(times['single'], 0)]} "
+              f"ms ({1e3 / single:.2f} scene-steps/s): "
+              f"{single * S / med[k]:.3f}x the scene-steps (turns batch, "
+              f"mesh, single, single, mesh, batch, {MS_STEPS} steps a "
+              f"run); first step (capture) {first[k]:.3f} s; captures "
+              f"{fn.events['capture']}; graph pool "
+              f"{pool_bytes(fn.pool) / 2**20:.1f} MiB; launches "
+              f"{r['counts']}; peak memory {r['peak']:.2f} GiB; kernels on "
+              f"the packed grid at most {err:.3e} from plain; on {card}")
+    return (eager["counts"], eager_m["counts"], graph["counts"],
+            graph_m["counts"], err)
 
 
 def phase_sharded(card: str, dev, batch) -> tuple:
@@ -3348,9 +3430,11 @@ def phase_sharded(card: str, dev, batch) -> tuple:
     process, and the sharded step in a NCCL world of one, each against the
     unsharded step from the same state (``multiscene_data``'s parameters,
     on the flagship scene's first view ``batch``); K1's slice lists against the global
-    lists; their times in turns; then ``scaling_bench`` at a world of one.
-    Returns the launch counts of the two sharded steps and the kernels'
-    errors on a slice."""
+    lists; each graphed against its eager step over SHARD_HOLD steps; their
+    times, eager and graphed, in turns against the unsharded graphed step;
+    then ``scaling_bench`` at a world of one.  Returns the launch counts of
+    the two eager sharded steps and of the two graphed ones, and the
+    kernels' errors on a slice."""
     from touchgs_torch.ops import rasterize_cuda as rc
     from touchgs_torch.parallel.mesh import make_mesh
     from touchgs_torch.parallel.sharded import (gather_state,
@@ -3358,6 +3442,7 @@ def phase_sharded(card: str, dev, batch) -> tuple:
                                                 shard_state)
     from touchgs_torch.models.densify import DensifyState
     from touchgs_torch.tools import scaling_bench
+    from touchgs_torch.train.graphs import GraphedStep, state_tensors
     from touchgs_torch.train.optim import PARAM_GROUPS, FusedAdam
     from touchgs_torch.train.trainer import TrainState, make_train_step
 
@@ -3372,11 +3457,15 @@ def phase_sharded(card: str, dev, batch) -> tuple:
     plain_step = make_train_step(cfg, opt)
     shard_step = make_train_step(cfg, opt, tile_shards=SHARDS)
     nccl_step = make_sharded_train_step(cfg, mesh, opt)
+    check(isinstance(shard_step, GraphedStep)
+          and isinstance(nccl_step, GraphedStep),
+          "the sharded steps are not graphed")
 
     ref, rm = plain_step(clone_state(state0), *batch)
     zero_launches()
-    st4, m4 = shard_step(clone_state(state0), *batch)
-    stn, mn = nccl_step(shard_state(clone_state(state0), mesh), *batch)
+    st4, m4 = shard_step.__wrapped__(clone_state(state0), *batch)
+    stn, mn = nccl_step.__wrapped__(shard_state(clone_state(state0), mesh),
+                                    *batch)
     torch.cuda.synchronize()
     counts = dict(rc.launches)
     want = {"slot_lists": 0, "slot_rows": SHARDS + 1,
@@ -3414,11 +3503,62 @@ def phase_sharded(card: str, dev, batch) -> tuple:
           f"{2 * per}, {3 * per}) equal the global lists' slice")
     del x, full
 
-    # times, in turns: unsharded, SHARDS slices, NCCL world of one, ...
+    # each graphed step against its eager step from one state
+    graph_counts = dict.fromkeys(rc.launches, 0)
+    first = {}
+    for name, fn, place in (
+            (f"{SHARDS} slices", shard_step, lambda st: st),
+            ("NCCL world of one", nccl_step,
+             lambda st: shard_state(st, mesh))):
+        out = {}
+        for side in ("eager", "graph"):
+            st, losses = place(clone_state(state0)), []
+            run = fn if side == "graph" else fn.__wrapped__
+            zero_launches()
+            torch.cuda.synchronize()
+            for i in range(SHARD_HOLD):
+                t0 = time.perf_counter()
+                st, m = run(st, *batch)
+                losses.append(float(m["loss"]))
+                if i == 0:
+                    first.setdefault(name, {})[side] = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            if side == "graph":
+                for k, v in rc.launches.items():
+                    graph_counts[k] += v
+            out[side] = (np.array(losses), state_tensors(st))
+        rel = np.abs(out["graph"][0] - out["eager"][0]) / out["eager"][0]
+        exact = all(bool(((a == b) | (a.isnan() & b.isnan())).all())
+                    for a, b in zip(out["graph"][1], out["eager"][1]))
+        print(f"sharded ({name}) graphed against eager: {SHARD_HOLD} steps, "
+              f"losses at most {rel.max():.3e} apart (relative), every "
+              f"state tensor equal: {exact}; first step (capture) "
+              f"{first[name]['graph']:.3f} s against "
+              f"{first[name]['eager']:.3f} s eager; captures "
+              f"{fn.events['capture']}; graph pool "
+              f"{pool_bytes(fn.pool) / 2**20:.1f} MiB")
+        check(rel.max() <= 1e-3 and exact and fn.events["capture"] == 1,
+              f"sharded ({name}): the graphed step differs from its eager "
+              f"step, or captured {fn.events['capture']} times")
+        del out
+    want = {"slot_lists": 0, "slot_rows": SHARD_HOLD * (SHARDS + 1),
+            "composite_fwd": SHARD_HOLD * (SHARDS + 1),
+            "composite_bwd": SHARD_HOLD * (SHARDS + 1)}
+    check(graph_counts == want, f"graphed sharded launches {graph_counts}, "
+          f"want {want}")
+
+    # times, in turns: unsharded graphed, SHARDS slices and the NCCL world
+    # of one, eager and graphed, ...
     states = {"unsharded": (plain_step, clone_state(state0)),
-              f"{SHARDS} slices": (shard_step, clone_state(state0)),
-              "NCCL world of one": (nccl_step,
-                                    shard_state(clone_state(state0), mesh))}
+              f"{SHARDS} slices": (shard_step.__wrapped__,
+                                   clone_state(state0)),
+              f"{SHARDS} slices graphed": (shard_step, clone_state(state0)),
+              "NCCL world of one": (nccl_step.__wrapped__,
+                                    shard_state(clone_state(state0), mesh)),
+              "NCCL world of one graphed": (
+                  nccl_step, shard_state(clone_state(state0), mesh))}
+    for fn, st in states.values():  # the graphed ones capture here
+        fn(st, *batch)
     times = {k: [] for k in states}
     for _ in range(2):
         for k, (fn, st) in states.items():
@@ -3426,12 +3566,12 @@ def phase_sharded(card: str, dev, batch) -> tuple:
     med = {k: float(np.median(v)) for k, v in times.items()}
     print("sharded: step median " + ", ".join(
         f"{k} {v:.3f} ms ({v / med['unsharded']:.3f}x)"
-        for k, v in med.items()) + f", {SHARD_STEPS} steps each in turns, "
-        f"on {card}")
+        for k, v in med.items()) + f" of the unsharded graphed step, "
+        f"{SHARD_STEPS} steps each in turns, on {card}")
     del states
     line = scaling_bench.measure(torch.device("cuda"))
     print(f"scaling_bench (world of one): {json.dumps(line)}")
-    return counts, err
+    return counts, graph_counts, err
 
 
 def phase_parallel(card: str, dev=torch.device("cuda")) -> dict:
@@ -3456,14 +3596,17 @@ def phase_parallel(card: str, dev=torch.device("cuda")) -> dict:
     check(init_distributed(f"127.0.0.1:{port}", 1, 0) is False
           and torch.distributed.get_backend() == "nccl",
           "a NCCL world of one")
-    counts_m, counts_mm, err_m = phase_multiscene(card, dev)
+    counts_m, counts_mm, counts_mg, counts_mmg, err_m = phase_multiscene(
+        card, dev)
     torch.cuda.empty_cache()
-    counts_s, err_s = phase_sharded(card, dev, batch)
+    counts_s, counts_sg, err_s = phase_sharded(card, dev, batch)
     torch.distributed.destroy_process_group()
     torch.cuda.empty_cache()
     print(f"phase 4h: {time.time() - t0:.1f} s")
     return {"viewer": counts_v, "multiscene": counts_m,
             "multiscene_mesh": counts_mm, "sharded": counts_s,
+            "multiscene_graph": counts_mg, "mesh_graph": counts_mmg,
+            "sharded_graph": counts_sg,
             "errors": {"viewer": err_v, "multiscene": err_m,
                        "sharded": err_s}}
 
@@ -4027,8 +4170,115 @@ def phase_graph_trainer(card: str, scene) -> dict:
           f"{g['psnr']:.4f} graphed against {e['psnr']:.4f} eager, alive "
           f"{g['alive']} against {e['alive']}, captures "
           f"{g['events']['capture']} (bound {bound}), {g['it_s']:.2f} it/s "
-          f"against {e['it_s']:.2f}; phase 4k (b) "
-          f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+          f"against {e['it_s']:.2f}; on {card}", flush=True)
+    pose_counts = phase_graph_pose(card, scene, cfg)
+    print(f"phase 4k (b) {time.perf_counter() - t_phase:.1f} s on {card}",
+          flush=True)
+    return g["counts"], pose_counts
+
+
+def phase_graph_pose(card: str, scene, cfg) -> dict:
+    """Phase 4k (b)'s SO3xR3 leg: ``Trainer.run`` with the pose optimizer
+    on ``scene``, every view a training view (4d's split trains on two of
+    twelve), for GRAPH_POSE_STEPS steps, graphed and then eager
+    (``plain_steps``), the launch counters set to 0 just before each: one
+    capture per active SH degree across every view (the view a device
+    index in the graph's buffer), none eager; each step's loss and the
+    final pose deltas within rtol 1e-3; K1 with rows, K2 and K3 exactly
+    GRAPH_POSE_STEPS launches each.  Then the graphed pose step timed in
+    turns against the non-pose graphed step (non-pose, pose, pose,
+    non-pose, GRAPH_TIMED steps a turn, each ending in a synchronize) at
+    SH degree GRAPH_SH.  Returns the graphed run's counts."""
+    from touchgs_torch.config import PoseOptConfig
+    from touchgs_torch.ops import rasterize_cuda as rc
+    from touchgs_torch.train.trainer import Trainer
+
+    pose_cfg = dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, rasterize=dataclasses.replace(
+            cfg.model.rasterize, k_tile=512, k_tile_max_train=512)),
+        densify=dataclasses.replace(cfg.densify, warmup_steps=10 ** 6),
+        pose_opt=PoseOptConfig(mode="SO3xR3"), log_every=1,
+        sh_degree_interval=GRAPH_POSE_SH_INTERVAL)
+    scene = dataclasses.replace(scene, i_train=np.arange(len(scene.cameras)))
+    runs = {}
+    for name in ("graph", "eager"):
+        with (plain_steps() if name == "eager" else contextlib.nullcontext()):
+            trainer = Trainer(scene, pose_cfg)
+            views = []
+            real = trainer._batch
+            trainer._batch = lambda v: (views.append(v), real(v))[1]
+            zero_launches()
+            t0 = time.perf_counter()
+            trainer.run(GRAPH_POSE_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        runs[name] = dict(
+            loss=np.array([m["loss"] for m in trainer.history]),
+            pose=trainer.state.pose_deltas.cpu().numpy(),
+            captures=trainer.events["capture"], counts=dict(rc.launches),
+            views=sorted(set(views)), wall_s=wall,
+            sh=trainer.active_sh_degree(GRAPH_POSE_STEPS - 1),
+            pool=(pool_bytes(trainer.train_step.pool)
+                  if name == "graph" else 0))
+        del trainer
+        torch.cuda.empty_cache()
+    g, e = runs["graph"], runs["eager"]
+    rel = np.abs(g["loss"] - e["loss"]) / np.abs(e["loss"])
+    gap = float(np.abs(g["pose"] - e["pose"]).max())
+    print(f"graph pose (SO3xR3): {GRAPH_POSE_STEPS} steps over views "
+          f"{g['views']} at SH 0..{g['sh']}: captures {g['captures']} "
+          f"graphed, {e['captures']} eager; losses at most {rel.max():.3e} "
+          f"apart (relative); pose deltas |max| "
+          f"{float(np.abs(e['pose']).max()):.3e}, at most {gap:.3e} apart; "
+          f"graph pool {g['pool'] / 2**20:.1f} MiB; {g['wall_s']:.2f} s "
+          f"graphed against {e['wall_s']:.2f} s eager; launches "
+          f"{g['counts']}", flush=True)
+    want = {k: 0 if k == "slot_lists" else GRAPH_POSE_STEPS
+            for k in rc.launches}
+    check(g["captures"] == g["sh"] + 1 and e["captures"] == 0
+          and len(g["views"]) >= 3,
+          f"graph pose: captures {g['captures']} for SH 0..{g['sh']} over "
+          f"views {g['views']}, eager {e['captures']}")
+    check(g["counts"] == want and e["counts"] == want,
+          f"graph pose launches {g['counts']}, eager {e['counts']}, want "
+          f"{want}")
+    check(bool(np.isfinite(g["loss"]).all()) and rel.max() <= 1e-3
+          and np.allclose(g["pose"], e["pose"], rtol=1e-3, atol=1e-8)
+          and float(np.abs(g["pose"]).max()) > 0,
+          f"graph pose against eager: losses {rel.max():.3e} apart, pose "
+          f"deltas {gap:.3e}")
+
+    # the graphed pose step against the non-pose graphed step, in turns
+    trainers = {"non-pose": Trainer(scene, dataclasses.replace(
+                    pose_cfg, pose_opt=PoseOptConfig())),
+                "pose": Trainer(scene, pose_cfg)}
+    views = [int(v) for v in scene.i_train]
+    for tr in trainers.values():  # the capture at GRAPH_SH
+        tr.state, _ = tr.train_step(tr.state, *tr._batch(views[0]),
+                                    GRAPH_SH, tr.view_index(views[0]))
+    times = {k: [] for k in trainers}
+    for name in ("non-pose", "pose", "pose", "non-pose"):
+        tr = trainers[name]
+        for i in range(GRAPH_TIMED):
+            v = views[i % len(views)]
+            batch = (*tr._batch(v), GRAPH_SH, tr.view_index(v))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.state, _ = tr.train_step(tr.state, *batch)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    caps = {k: tr.events["capture"] for k, tr in trainers.items()}
+    del trainers
+    torch.cuda.empty_cache()
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"graph pose: median step {med['pose']:.3f} ms with SO3xR3 "
+          f"against {med['non-pose']:.3f} ms without "
+          f"({med['pose'] / med['non-pose']:.3f}x), both graphed, "
+          f"{2 * GRAPH_TIMED} steps each in turns (non-pose, pose, pose, "
+          f"non-pose) over {len(views)} views at SH {GRAPH_SH}, each ending "
+          f"in a synchronize; captures {caps}; on {card}", flush=True)
+    check(caps == {"non-pose": 1, "pose": 1},
+          f"graph pose timing: captures {caps}, want one each")
     return g["counts"]
 
 
@@ -4116,7 +4366,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli_counts, cli_scene = phase_cli(card_name)
     torch.cuda.empty_cache()
-    graph_trainer_counts = phase_graph_trainer(card_name, cli_scene)
+    graph_trainer_counts, pose_graph_counts = phase_graph_trainer(
+        card_name, cli_scene)
     del cli_scene
     torch.cuda.empty_cache()
     pipeline_counts = phase_vision(card_name)
@@ -4147,8 +4398,10 @@ def main() -> int:
             k["launches_sensor"] = sensor_counts[k["name"]]
             k["launches_nerf"] = nerf_counts[k["name"]]
             for path in ("viewer", "multiscene", "multiscene_mesh",
-                         "sharded"):
+                         "sharded", "multiscene_graph", "mesh_graph",
+                         "sharded_graph"):
                 k[f"launches_{path}"] = parallel[path][k["name"]]
+            k["launches_pose_graph"] = pose_graph_counts[k["name"]]
             k["launches_native"] = native_counts[k["name"]]
             k["launches_graph"] = graph_counts[k["name"]]
             k["launches_graph_trainer"] = graph_trainer_counts[k["name"]]

@@ -220,12 +220,11 @@ def test_rasterize_cuda_on_card_matches_cpu(cuda_device):
         torch.testing.assert_close(gg, cc, atol=5e-6, rtol=1e-4)
 
 
-def card_scene() -> Scene:
-    """Two random 96x64 views and 300 seeds, as numpy."""
+def card_scene(n_views: int = 2) -> Scene:
+    """``n_views`` (2 or 3) random 96x64 views and 300 seeds, as numpy."""
     rng = np.random.default_rng(0)
-    n_views = 2
     c2w = np.stack([look_at_c2w((2.0 * np.cos(t), 0.6, 2.0 * np.sin(t)))
-                    for t in (0.4, 1.1)])
+                    for t in (0.4, 1.1, 1.8)[:n_views]])
     f = np.full(n_views, 90.0, np.float32)
     cams = Cameras(fx=f, fy=f.copy(), cx=np.full(n_views, W / 2, np.float32),
                    cy=np.full(n_views, H / 2, np.float32), c2w=c2w, width=W,
@@ -1529,3 +1528,205 @@ def test_failed_capture_raises(cuda_device, monkeypatch):
     for a, b in zip(graphs.state_tensors(trainer.state),
                     graphs.state_tensors(before)):
         assert torch.equal(a, b)
+
+
+# ---- the other graphed steps (pose, tile_shards, sharded, multi-scene) ----
+
+def _same_tensors(a: list, b: list) -> bool:
+    """Every pair equal, NaN where NaN (the dead slots' quaternions)."""
+    return all(x.shape == y.shape and bool(((x == y) | (x.isnan()
+                                                        & y.isnan())).all())
+               for x, y in zip(a, b))
+
+
+def _graph_against_eager(step, state, batches: list, between=None) -> dict:
+    """len(batches) steps of the graphed ``step`` and as many of its
+    ``__wrapped__`` from copies of ``state``, ``between(i, state)`` (a
+    refine, a reset) after step i on each side, the launch counters set to
+    0 before each side: the losses, the final states and the counts."""
+    import copy
+
+    out = {}
+    for name, fn in (("eager", step.__wrapped__), ("graph", step)):
+        st = copy.deepcopy(state)
+        for k in rc.launches:
+            rc.launches[k] = 0
+        losses = []
+        for i, batch in enumerate(batches):
+            st, m = fn(st, *batch)
+            losses.append(float(m["loss"]))
+            if between is not None:
+                st = between(i, st)
+        torch.cuda.synchronize()
+        out[name] = (losses, st, dict(rc.launches))
+    return out
+
+
+def _check_graph_against_eager(out: dict, n_launches: int) -> None:
+    (el, es, ec), (gl, gs, gc) = out["eager"], out["graph"]
+    assert np.isfinite(gl).all()
+    np.testing.assert_allclose(gl, el, rtol=1e-3)
+    assert _same_tensors(graphs.state_tensors(gs), graphs.state_tensors(es))
+    want = {"slot_lists": 0, "slot_rows": n_launches,
+            "composite_fwd": n_launches, "composite_bwd": n_launches}
+    assert ec == want and gc == want, (ec, gc)
+
+
+def _pose_trainer() -> Trainer:
+    from touchgs_torch.config import PoseOptConfig
+
+    trainer = Trainer(card_scene(3), _card_cfg(
+        pose_opt=PoseOptConfig(mode="SO3xR3")))
+    assert isinstance(trainer.train_step, GraphedStep)
+    return trainer
+
+
+@pytest.mark.cuda
+def test_graphed_pose_step_one_capture_for_three_views(cuda_device):
+    """The SO3xR3 step graphed against its ``__wrapped__`` over 5 steps on
+    views 0, 1, 2, 0, 1 (each a device index): losses rtol 1e-3, every
+    state tensor (the pose deltas too) equal, 5 launches each of K1 with
+    rows, K2 and K3; one capture serves the three views."""
+    trainer = _pose_trainer()
+    step = trainer.train_step
+    batches = [(*trainer._batch(v), 3, trainer.view_index(v))
+               for v in (0, 1, 2, 0, 1)]
+    out = _graph_against_eager(step, trainer.state, batches)
+    _check_graph_against_eager(out, 5)
+    assert step.events["capture"] == 1 and len(step.graphs) == 1
+    assert float(out["graph"][1].pose_deltas.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_graphed_tile_shards_step_matches_eager(cuda_device):
+    """``make_train_step(..., tile_shards=4)`` graphed against its
+    ``__wrapped__`` over 5 steps: losses rtol 1e-3, every state tensor
+    equal, K1-K3 launched once a slice a step; one capture."""
+    trainer = Trainer(card_scene(), _card_cfg())
+    events: dict = {}
+    step = make_train_step(trainer.cfg, trainer.optimizer, tile_shards=4,
+                           events=events)
+    assert isinstance(step, GraphedStep)
+    batches = [(*trainer._batch(i % 2), 3) for i in range(5)]
+    _check_graph_against_eager(
+        _graph_against_eager(step, trainer.state, batches), 4 * 5)
+    assert events["capture"] == 1
+
+
+def _two_scenes(cfg):
+    import copy
+
+    from touchgs_torch.parallel import multiscene as ms
+
+    trainers = [Trainer(card_scene(), dataclasses.replace(cfg, seed=s))
+                for s in range(2)]
+    state = ms.make_multiscene_state(
+        [copy.deepcopy(t.state.params) for t in trainers], cfg,
+        trainers[0].optimizer)
+
+    def batch(i):
+        views = [trainers[s]._batch((i + s) % 2) for s in range(2)]
+        return (ms.stack_cameras([b[0] for b in views]),
+                *(torch.stack([b[k] for b in views]) for k in (1, 2, 3)), 3)
+
+    return trainers[0].optimizer, state, [batch(i) for i in range(5)]
+
+
+@pytest.mark.cuda
+def test_graphed_multiscene_step_refine_and_reset(cuda_device):
+    """The 2-scene step graphed against its ``__wrapped__`` over 5 steps
+    with a refine after step 2 and an opacity reset after step 3 on each
+    side (each scene's generator seeded alike): losses rtol 1e-3, every
+    state tensor equal, one launch each of K1-K3 a step; the refine and
+    the reset write into the state's tensors and cost no capture."""
+    from touchgs_torch.parallel import multiscene as ms
+
+    cfg = _card_cfg()
+    opt, state, batches = _two_scenes(cfg)
+    step = ms.make_multiscene_train_step(cfg, opt)
+    refine = ms.make_multiscene_refine_step(cfg)
+    reset = ms.make_multiscene_reset_opacity_step(cfg)
+
+    def between(i, st):
+        ptrs = [t.data_ptr() for t in graphs.state_tensors(st)]
+        if i == 2:
+            st = refine(st, ms.scene_generators(3, 2, cuda_device))
+        if i == 3:
+            st = reset(st)
+        assert [t.data_ptr() for t in graphs.state_tensors(st)] == ptrs
+        return st
+
+    out = _graph_against_eager(step, state, batches, between)
+    _check_graph_against_eager(out, 5)
+    assert step.events["capture"] == 1 and len(step.graphs) == 1
+
+
+@pytest.mark.cuda
+def test_graphed_mesh_and_sharded_steps_in_nccl_world_of_one(cuda_device):
+    """In a NCCL world of one, the sharded step and the 2-scene step on a
+    data=1, model=1 mesh, each graphed (the gathers, reduce-scatters and
+    sums captured) against its ``__wrapped__`` over 5 steps: losses rtol
+    1e-3, every state tensor equal, one capture each."""
+    import socket
+
+    from touchgs_torch.parallel import multiscene as ms
+    from touchgs_torch.parallel.distributed import init_distributed
+    from touchgs_torch.parallel.mesh import make_mesh
+    from touchgs_torch.parallel.sharded import (make_sharded_train_step,
+                                                shard_state)
+
+    cfg = _card_cfg()
+    trainer = Trainer(card_scene(), cfg)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    assert init_distributed(f"127.0.0.1:{port}", 1, 0) is False
+    try:
+        mesh = make_mesh(data=1, model=1)
+        assert torch.distributed.get_backend() == "nccl"
+        assert mesh.group is not None
+        step = make_sharded_train_step(cfg, mesh, trainer.optimizer)
+        batches = [(*trainer._batch(i % 2), 3) for i in range(5)]
+        _check_graph_against_eager(_graph_against_eager(
+            step, shard_state(trainer.state, mesh), batches), 5)
+        assert step.events["capture"] == 1
+        opt, state, batches = _two_scenes(cfg)
+        step = ms.make_multiscene_train_step(cfg, opt, mesh)
+        _check_graph_against_eager(_graph_against_eager(
+            step, ms.shard_multiscene_state(state, mesh), batches), 5)
+        assert step.events["capture"] == 1
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_failed_multiscene_capture_raises(cuda_device, monkeypatch):
+    """A multi-scene step that reads a value to the host cannot be
+    captured: the call raises, nothing runs eagerly in its place, and the
+    state is as it was."""
+    import copy
+
+    from touchgs_torch.parallel import multiscene as ms
+
+    cfg = _card_cfg()
+    opt, state, batches = _two_scenes(cfg)
+    losses = ms.compute_losses
+
+    def reading(*args, **kw):
+        out = losses(*args, **kw)
+        float(out.total)           # a sync: not allowed under capture
+        return out
+
+    monkeypatch.setattr(ms, "compute_losses", reading)
+    step = ms.make_multiscene_train_step(cfg, opt)
+    before = copy.deepcopy(state)
+    for k in rc.launches:
+        rc.launches[k] = 0
+    with pytest.raises(RuntimeError):
+        step(state, *batches[0])
+    torch.cuda.synchronize()
+    assert state.step == before.step == 0
+    assert not step.graphs and step.events["capture"] == 0
+    assert all(n == 0 for n in rc.launches.values()), rc.launches
+    assert _same_tensors(graphs.state_tensors(state),
+                         graphs.state_tensors(before))

@@ -44,10 +44,12 @@ def exp_so3(omega: torch.Tensor) -> torch.Tensor:
 
 def apply_pose_delta(camera: Camera, tau: torch.Tensor) -> Camera:
     """Apply a 6-DoF tangent ``tau = [t(3), ω(3)]`` to the camera-to-world:
-    R' = exp(ω)·R (left/world-frame perturbation), t' = t + t_delta."""
+    R' = exp(ω)·R (left/world-frame perturbation), t' = t + t_delta.
+    Device ops only (the bottom row [0, 0, 0, 1] is the identity's), so
+    that the graphed pose step can take it."""
     R = exp_so3(tau[3:6]) @ camera.c2w[:3, :3]
     t = camera.c2w[:3, 3] + tau[0:3]
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=camera.c2w.dtype,
-                          device=camera.c2w.device)
+    bottom = torch.eye(4, dtype=camera.c2w.dtype,
+                       device=camera.c2w.device)[3:]
     c2w = torch.cat([torch.cat([R, t[:, None]], dim=1), bottom], dim=0)
     return dataclasses.replace(camera, c2w=c2w)

@@ -43,6 +43,13 @@ on every ``model`` rank alike (the scene's own generator, or the injected
 noise, by its index in the whole batch); each rank keeps its rows.  The
 opacity reset is elementwise on the rank's rows.  ``S % data`` and
 ``C % model`` must be 0, as a JAX ``NamedSharding`` wants.
+
+On the card the step runs as a CUDA graph (``train/graphs.py``), the
+counterpart of the JAX package's jitted, donated multi-scene step
+(``multiscene.py:157``), its collectives captured inside it.  Refine and
+the opacity reset write their results into the state's own tensors and
+return that state, as ``trainer.refine_state`` does, so they cost no
+capture.
 """
 from __future__ import annotations
 
@@ -65,8 +72,9 @@ from touchgs_torch.models.splatfacto import compute_losses, render, shade
 from touchgs_torch.ops.rasterize_cuda import rasterize_cuda_scenes
 from touchgs_torch.parallel.mesh import Mesh, _all_gather, named_leaves
 from touchgs_torch.parallel.sharded import map_state
+from touchgs_torch.train.graphs import GraphedStep
 from touchgs_torch.train.optim import PARAM_GROUPS, FusedAdam
-from touchgs_torch.train.trainer import TrainState
+from touchgs_torch.train.trainer import TrainState, assign_fields
 
 
 def stack_params(params_list: Sequence[GaussianParams]) -> GaussianParams:
@@ -183,14 +191,19 @@ def make_multiscene_train_step(cfg: TrainConfig,
     With a ``mesh`` the state is this rank's share
     (``shard_multiscene_state``), the batch the whole one on every rank,
     and every rank returns the metrics of all S scenes.  A mesh of more
-    than one rank needs a process group."""
+    than one rank needs a process group.
+
+    The step is a ``graphs.GraphedStep``: a CUDA graph on a state on the
+    card (with a mesh, its gathers captured in it and the mesh's groups
+    held as long as its graphs), the plain step on the CPU; captures count
+    in its ``events["capture"]``."""
     if optimizer is None:
         optimizer = FusedAdam(cfg.optim)
     if mesh is not None:
         mesh.check_group()
 
-    def step_fn(state: TrainState, cameras: Camera, images, depths, uncs,
-                active_sh_degree: int):
+    def body(state: TrainState, cameras: Camera, images, depths, uncs,
+             active_sh_degree: int) -> dict:
         params = state.params
         S, C = params.means.shape[:2]
         first = _first_scene(mesh, S, cameras.fx.shape[0])
@@ -217,19 +230,23 @@ def make_multiscene_train_step(cfg: TrainConfig,
                        dict(zip(diff, grads[:-1])), state.opt_state)
         radii = torch.stack([p.radii.detach() for _, p in rendered])
         valid = torch.stack([p.valid for _, p in rendered])
-        state.densify = update_stats(state.densify, grads[-1], radii, valid,
-                                     cameras.width, cameras.height)
-        state.step += 1
+        update_stats(state.densify, grads[-1], radii, valid, cameras.width,
+                     cameras.height)
         per_scene = _gather_data(torch.stack([lo.total.detach()
                                               for lo in losses]), mesh)
-        metrics = {"loss": per_scene.sum() / per_scene.shape[0],
-                   "loss_per_scene": per_scene,
-                   "psnr_per_scene": _gather_data(
-                       torch.stack([lo.psnr.detach() for lo in losses]),
-                       mesh)}
+        return {"loss": per_scene.sum() / per_scene.shape[0],
+                "loss_per_scene": per_scene,
+                "psnr_per_scene": _gather_data(
+                    torch.stack([lo.psnr.detach() for lo in losses]), mesh)}
+
+    def step_fn(state: TrainState, cameras: Camera, images, depths, uncs,
+                active_sh_degree: int):
+        metrics = body(state, cameras, images, depths, uncs,
+                       active_sh_degree)
+        state.step += 1
         return state, metrics
 
-    return step_fn
+    return GraphedStep(step_fn, body)
 
 
 def _reset_opt_slots_multiscene(opt_state, touched: torch.Tensor, S: int,
@@ -249,7 +266,9 @@ def make_multiscene_refine_step(cfg: TrainConfig,
     use_screen_size=False, split_noise=None) → state: densify/clone/split/
     prune each scene with its own generator (or the injected (S, k, C, 3)
     ``split_noise``), then the per-scene Adam-moment reset.  The flags are
-    the single-scene schedule's, driven from the shared step.
+    the single-scene schedule's, driven from the shared step.  The results
+    are written into ``state``'s tensors, which it returns (the JAX
+    package's refine donates its state): a graphed step goes on replaying.
 
     With a ``mesh`` the state is this rank's share: each of its scenes is
     gathered whole over the ``model`` ranks and refined alike on each,
@@ -294,16 +313,21 @@ def make_multiscene_refine_step(cfg: TrainConfig,
         _reset_opt_slots_multiscene(state.opt_state,
                                     torch.stack([t[mine] for _, _, t in outs]),
                                     S, c)
-        return dataclasses.replace(state, params=params, densify=densify)
+        assign_fields(state.params, params)
+        assign_fields(state.densify, densify)
+        return state
 
     return refine_fn
 
 
 def make_multiscene_reset_opacity_step(cfg: TrainConfig) -> Callable:
+    """reset_fn(state) → state: the opacity reset, written into ``state``'s
+    opacities (as the refine), which it returns."""
     def reset_fn(state: TrainState) -> TrainState:
         # elementwise: the stacked (S, C) params need no loop
-        return dataclasses.replace(state, params=reset_opacities(
-            state.params, cfg.densify.reset_opacity_value))
+        state.params.logit_opacities.copy_(reset_opacities(
+            state.params, cfg.densify.reset_opacity_value).logit_opacities)
+        return state
 
     return reset_fn
 

@@ -19,7 +19,10 @@ with the collectives written out on ``torch.distributed``:
    cotangent in the backward.
 
 Every rank calls the step with the same camera and images.  A world of one
-(one GPU under NCCL, or no process group) runs the same code.
+(one GPU under NCCL, or no process group) runs the same code.  On the card
+the step runs as a CUDA graph (``train/graphs.py``, the JAX package's "one
+jitted SPMD program per train step", ``sharded.py:3``) with its NCCL
+collectives captured inside it; on the CPU (gloo) it runs the plain step.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from touchgs_torch.models.gaussians import GaussianParams
 from touchgs_torch.models.splatfacto import compute_losses, render
 from touchgs_torch.parallel.mesh import (Mesh, _all_gather, shard_rows,
                                          state_shardings)
+from touchgs_torch.train.graphs import GraphedStep
 from touchgs_torch.train.optim import PARAM_GROUPS, FusedAdam, FusedAdamState
 from touchgs_torch.train.trainer import TrainState
 
@@ -53,12 +57,16 @@ def make_sharded_train_step(cfg: TrainConfig, mesh: Mesh,
     """Returns step(state, camera, image, depth, unc, active_sh_degree) →
     (state, metrics) for a ``state`` that ``shard_state`` placed; the
     state is updated in place.  Metrics are device scalars over the whole
-    image and every rank's Gaussians."""
+    image and every rank's Gaussians.  The step is a
+    ``graphs.GraphedStep``: a CUDA graph on a state on the card (the
+    gathers, reduce-scatters and sums captured in it, the mesh's groups
+    held as long as its graphs), the plain step on the CPU; captures
+    count in its ``events["capture"]``."""
     if optimizer is None:
         optimizer = FusedAdam(cfg.optim)
 
-    def step_fn(state: TrainState, camera: Camera, image, depth, unc,
-                active_sh_degree: int):
+    def body(state: TrainState, camera: Camera, image, depth, unc,
+             active_sh_degree: int) -> dict:
         params = state.params
         diff = {g: getattr(params, g).detach().requires_grad_(True)
                 for g in PARAM_GROUPS}
@@ -74,18 +82,21 @@ def make_sharded_train_step(cfg: TrainConfig, mesh: Mesh,
                                     list(diff.values()) + [offset0])
         optimizer.step({g: getattr(params, g) for g in PARAM_GROUPS},
                        dict(zip(diff, grads[:-1])), state.opt_state)
-        state.densify = update_stats(state.densify, grads[-1],
-                                     proj.radii.detach(), proj.valid,
-                                     camera.width, camera.height)
-        metrics = {
+        update_stats(state.densify, grads[-1], proj.radii.detach(),
+                     proj.valid, camera.width, camera.height)
+        return {
             "loss": losses.total.detach(), "psnr": losses.psnr.detach(),
             "depth_loss": losses.depth_loss.detach(),
             "num_alive": _all_sum(params.num_alive, mesh),
         }
+
+    def step_fn(state: TrainState, camera: Camera, image, depth, unc,
+                active_sh_degree: int):
+        metrics = body(state, camera, image, depth, unc, active_sh_degree)
         state.step += 1
         return state, metrics
 
-    return step_fn
+    return GraphedStep(step_fn, body)
 
 
 def map_state(state: TrainState, fn) -> TrainState:

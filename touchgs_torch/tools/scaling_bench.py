@@ -7,7 +7,12 @@ rows over the ranks, the tile grid by slices, through K1-K3 on CUDA and
 the scan path on the CPU.  Rank 0 prints one JSON line a measurement:
 
     {"n_devices": N, "iters_per_sec": X, "mpix_per_sec": Y,
-     "mesh": {"data": D, "model": M}, "backend": "nccl", "device": "..."}
+     "mesh": {"data": D, "model": M}, "backend": "nccl", "device": "...",
+     "loss": L, "first_step_s": T}
+
+On the card the step is a CUDA graph: the first step's seconds (warm-up,
+capture and one replay) are ``first_step_s``, also printed to stderr as
+``first step (capture)``, as ``bench_torch.py`` prints them.
 
 On GPUs, one process a card, under torchrun (NCCL; ``init_distributed``
 reads torchrun's variables):
@@ -88,7 +93,17 @@ def measure(device: torch.device) -> dict:
     def sync(m):
         float(m["loss"])   # waits for the step on every backend
 
-    for _ in range(WARMUP):
+    # on the card the first step warms up, captures the step as a CUDA
+    # graph (its collectives inside) and replays it once
+    t0 = time.perf_counter()
+    state, m = step(state, cam, image, depth, unc, 1)
+    sync(m)
+    first_s = time.perf_counter() - t0
+    if mesh.rank == 0:
+        label = ("first step (capture)" if device.type == "cuda"
+                 else "first step")
+        print(f"{label}: {first_s:.3f} s", file=sys.stderr, flush=True)
+    for _ in range(WARMUP - 1):
         state, m = step(state, cam, image, depth, unc, 1)
     sync(m)
     t0 = time.perf_counter()
@@ -106,6 +121,7 @@ def measure(device: torch.device) -> dict:
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
         "loss": float(m["loss"]),
+        "first_step_s": first_s,
     }
 
 

@@ -7,8 +7,10 @@ one step for all scenes, densification per scene on the single-scene
 schedule.  Each scene is then trained alone by a ``Trainer`` with the same
 configuration, and the two are set side by side: eval PSNR, alive counts
 and the wall-clock of each.  On CUDA every render goes through the tile
-kernels, the S scenes of a step through one launch of each; with
-``--device cpu`` through the scan path.
+kernels, the S scenes of a step through one launch of each, the step
+captured as a CUDA graph and replayed (its first step, the capture, timed
+and printed as ``first step (capture)``); with ``--device cpu`` through
+the scan path.
 
 ``--data D --model M`` trains the batch over a D × M mesh of processes, as
 the JAX tool does on its ``data=4, model=2`` mesh: scenes on ``data``,
@@ -211,7 +213,25 @@ def main(argv=None) -> dict:
     opt = FusedAdam(cfg.optim)
     state = shard_multiscene_state(make_multiscene_state(params, cfg, opt),
                                    mesh)
-    step = make_multiscene_train_step(cfg, opt, mesh)
+    graphed = make_multiscene_train_step(cfg, opt, mesh)
+    first: dict = {}
+
+    def step(state, *batch):
+        """The graphed step; the first call timed alone (on the card its
+        warm-up, capture and one replay)."""
+        if first:
+            return graphed(state, *batch)
+        _sync(dev)
+        t = time.perf_counter()
+        out = graphed(state, *batch)
+        _sync(dev)
+        first["s"] = time.perf_counter() - t
+        if lead:
+            label = ("first step (capture)" if dev.type == "cuda"
+                     else "first step")
+            print(f"{label}: {first['s']:.3f} s", flush=True)
+        return out
+
     alive0 = alive_per_scene(state, mesh).tolist()
     view_rng = np.random.default_rng(123)
 
@@ -276,7 +296,8 @@ run of each.  Multi-scene {ms_s:.1f} s for all {S} scenes together
     if args.out:
         with open(args.out, "a") as f:
             f.write(md)
-    return {"rows": rows, "multiscene_s": ms_s, "single_s": ss_s}
+    return {"rows": rows, "multiscene_s": ms_s, "single_s": ss_s,
+            "first_step_s": first["s"]}
 
 
 if __name__ == "__main__":

@@ -1,37 +1,48 @@
-"""The compiled train step: the port's counterpart of the JAX package's
+"""The compiled train steps: the port's counterpart of the JAX package's
 ``jax.jit(step_fn, donate_argnums=(0,))`` (``touchgs_tpu/train/trainer.py:
-120``), a step captured once as a CUDA graph and replayed.
+120``, ``parallel/multiscene.py:157``, ``parallel/sharded.py:102``), a
+step captured once as a CUDA graph and replayed.
 
 ``GraphedStep`` runs the device work of one training step (``body``: the
 render through K1 with rows, K2 and K3, the loss, ``torch.autograd.grad``,
-``FusedAdam.step`` and ``update_stats``) as a CUDA graph:
+``FusedAdam.step`` and ``update_stats``, and in the mesh steps their
+collectives) as a CUDA graph.  ``make_train_step`` (the kernel path, with
+or without the SO3xR3 pose optimizer and ``tile_shards``),
+``make_sharded_train_step`` and ``make_multiscene_train_step`` (with or
+without a mesh) return one:
 
 - **warm-up**: ``WARMUP_ITERS`` calls on a clone of the state, on a side
   stream, so that what PyTorch sets up lazily (cuBLAS's workspace for the
-  stream, autograd's device thread, the kernels' modules) happens before
-  the capture; the real state is not advanced;
+  stream, autograd's device thread, the kernels' modules, NCCL's first
+  collective on the stream) happens before the capture; the real state is
+  not advanced;
 - **capture**: one call of ``body`` on the state itself under
   ``torch.cuda.graph``, which records the work and runs none of it;
-- **replay**: each call copies the camera, image, depth and uncertainty
-  into the graph's static buffers and replays the graph.  The graph reads
-  and writes the state's own tensors in place, as the JAX step donates its
-  state.  The metrics it returns are device tensors of the graph's, which
-  the next replay overwrites: a caller that keeps one clones it.
+- **replay**: each call copies the static inputs (the camera or stacked
+  cameras, the image or images, depth and uncertainty, and the pose
+  step's view index) into the graph's buffers and replays the graph.  The
+  graph reads and writes the state's own tensors in place, as the JAX
+  step donates its state.  The metrics it returns are device tensors of
+  the graph's, which the next replay overwrites: a caller that keeps one
+  clones it.
 
 One graph is kept per static key, all in one memory pool: the active SH
-degree (``ops/sh.py`` takes it as a Python int), the image size, which of
-depth and uncertainty are given, and the state's tensors (data pointers and
+degree (``ops/sh.py`` takes it as a Python int), the static inputs' shapes
+and which of them are None, and the state's tensors (data pointers and
 shapes).  An SH-degree step, a capacity growth or a checkpoint restore
 (new tensors) makes a new key, so the next call warms up and captures
-again; refine and the opacity reset write into the state's tensors and cost
-no capture.  The k_tile is fixed per step (``make_train_step``'s
+again; refine and the opacity reset write into the state's tensors and
+cost no capture.  The pose step's view is a device index in the graph's
+buffer, so one graph serves every view, as the JAX step's traced
+``view_idx`` does.  The k_tile is fixed per step (``make_train_step``'s
 argument): the truncation guard's escalation makes a new step.  Graphs
 whose tensors are gone are dropped after the next capture.  ``events
 ["capture"]`` counts the captures.
 
 A capture or replay that fails raises: nothing falls back to the eager
 step.  A state on the CPU runs ``__wrapped__``, the plain step, as each
-kernel wrapper runs its plain version on CPU tensors.
+kernel wrapper runs its plain version on CPU tensors (and the mesh steps
+their gloo collectives).
 
 Launch counts: a replay runs no Python, so each graph keeps the counts of
 its capture and adds them to ``rasterize_cuda.launches`` at every replay;
@@ -54,43 +65,68 @@ WARMUP_ITERS = 3  # eager calls on a clone before a capture
 
 def state_tensors(state) -> list:
     """Every tensor of a ``TrainState`` that the step reads or writes: the
-    parameters, Adam's count and moments, the densify statistics."""
+    parameters, Adam's count and moments, the densify statistics and, with
+    the pose optimizer, the pose deltas."""
     opt = state.opt_state
     return ([getattr(state.params, f.name)
              for f in dataclasses.fields(state.params)]
             + [opt.count] + [opt.mu[k] for k in sorted(opt.mu)]
             + [opt.nu[k] for k in sorted(opt.nu)]
             + [getattr(state.densify, f.name)
-               for f in dataclasses.fields(state.densify)])
+               for f in dataclasses.fields(state.densify)]
+            + ([] if state.pose_deltas is None else [state.pose_deltas]))
+
+
+_CAMERA_FIELDS = ("fx", "fy", "cx", "cy", "c2w")
+
+
+def _own(x, device):
+    """A copy of the static input ``x`` (a tensor, a ``Camera`` or None) on
+    ``device``: the graph's buffer for it."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return x.to(device, copy=True)
+    return dataclasses.replace(x, **{k: _own(getattr(x, k), device)
+                                     for k in _CAMERA_FIELDS})
+
+
+def _copy_in(dst, src) -> None:
+    """Copy the static input ``src`` into the graph's buffer ``dst``."""
+    if dst is None:
+        return
+    if isinstance(dst, torch.Tensor):
+        dst.copy_(src)
+        return
+    for k in _CAMERA_FIELDS:
+        getattr(dst, k).copy_(getattr(src, k))
+
+
+def _spec(x):
+    """What a graph fixes of the static input ``x``: None, a tensor's shape
+    and dtype, a camera's resolution and its fields' shapes."""
+    if x is None:
+        return None
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape), x.dtype
+    return (x.width, x.height) + tuple(tuple(getattr(x, k).shape)
+                                       for k in _CAMERA_FIELDS)
 
 
 class _Graph:
-    """One captured step: the graph, its static inputs (a camera, image,
-    depth and uncertainty of the graph's own), its metrics and the kernel
-    launches of its capture."""
+    """One captured step: the graph, its static inputs (a flat tuple of
+    cameras, tensors and Nones of the graph's own), its metrics and the
+    kernel launches of its capture."""
 
-    def __init__(self, camera, image, depth, unc, device):
-        def own(t):
-            return None if t is None else t.to(device, copy=True)
-
-        self.camera = dataclasses.replace(
-            camera, **{k: own(getattr(camera, k))
-                       for k in ("fx", "fy", "cx", "cy", "c2w")})
-        self.image, self.depth, self.unc = own(image), own(depth), own(unc)
+    def __init__(self, inputs: tuple, device):
+        self.inputs = tuple(_own(x, device) for x in inputs)
         self.graph = torch.cuda.CUDAGraph()
         self.metrics: dict = {}
         self.launches = dict.fromkeys(rc.launches, 0)
 
-    def inputs(self) -> tuple:
-        return self.camera, self.image, self.depth, self.unc
-
-    def replay(self, camera, image, depth, unc) -> None:
-        for k in ("fx", "fy", "cx", "cy", "c2w"):
-            getattr(self.camera, k).copy_(getattr(camera, k))
-        for dst, src in ((self.image, image), (self.depth, depth),
-                         (self.unc, unc)):
-            if dst is not None:
-                dst.copy_(src)
+    def replay(self, inputs: tuple) -> None:
+        for dst, src in zip(self.inputs, inputs):
+            _copy_in(dst, src)
         self.graph.replay()
         rc.add_launches(self.launches)
 
@@ -98,38 +134,53 @@ class _Graph:
 class GraphedStep:
     """The train step as a CUDA graph (see the module docstring): called
     as the plain step, ``(state, camera, image, depth, unc,
-    active_sh_degree[, view_idx]) -> (state, metrics)``; ``__wrapped__`` is
-    the plain step.  ``body`` is the plain step's device work, which
-    returns the metrics and leaves ``state.step`` alone."""
+    active_sh_degree, *extra) -> (state, metrics)``; ``__wrapped__`` is
+    the plain step.  ``body`` is the plain step's device work, called as
+    ``body(state, camera, image, depth, unc, active_sh_degree,
+    *view)``; it returns the metrics and leaves ``state.step`` alone.
+
+    The static inputs are the camera (or stacked cameras), the image (or
+    the (S, H, W, 3) images), the depth and the uncertainty (or None) and,
+    with ``view_input``, the step's first extra argument, the view index,
+    as a (1,) int64 tensor (an int is put on the device first); without
+    it the extra arguments are the plain step's alone.  A mesh step's
+    ``body`` closes over its mesh, so the process groups of the graphs'
+    collectives live as long as the step."""
 
     def __init__(self, step_fn: Callable, body: Callable,
-                 events: Optional[dict] = None):
+                 events: Optional[dict] = None, view_input: bool = False):
         functools.update_wrapper(self, step_fn)
         self.body = body
         self.events = {} if events is None else events
         self.events.setdefault("capture", 0)
+        self.view_input = view_input
         self.graphs: dict = {}
         self.pool = None      # the graphs' shared memory pool
         self._stream = None   # warm-up and capture stream
 
     def __call__(self, state, camera, image, depth, unc, active_sh_degree,
-                 view_idx=None):
+                 *extra):
         if state.params.means.device.type != "cuda":
             return self.__wrapped__(state, camera, image, depth, unc,
-                                    active_sh_degree, view_idx)
+                                    active_sh_degree, *extra)
+        inputs = (camera, image, depth, unc)
+        if self.view_input:
+            inputs += (view_index(extra[0], state.params.means.device),)
         sh = int(active_sh_degree)
-        key = (sh, camera.width, camera.height, depth is None, unc is None,
+        key = (sh, tuple(_spec(x) for x in inputs),
                tuple((t.data_ptr(), tuple(t.shape))
                      for t in state_tensors(state)))
         g = self.graphs.get(key)
         if g is None:
-            g = self._capture(key, state, camera, image, depth, unc, sh)
-        g.replay(camera, image, depth, unc)
+            g = self._capture(key, state, inputs, sh)
+        g.replay(inputs)
         state.step += 1
         return state, g.metrics
 
-    def _capture(self, key, state, camera, image, depth, unc,
-                 sh: int) -> _Graph:
+    def _run(self, state, inputs: tuple, sh: int) -> dict:
+        return self.body(state, *inputs[:4], sh, *inputs[4:])
+
+    def _capture(self, key, state, inputs: tuple, sh: int) -> _Graph:
         """Warm up on a clone of ``state``, then capture ``body`` on
         ``state`` itself; runs none of the captured work.  Then drop the
         graphs whose tensors are gone: after the capture, since a pool
@@ -139,12 +190,14 @@ class GraphedStep:
             self.pool = torch.cuda.graph_pool_handle()
             self._stream = torch.cuda.Stream()
         s = self._stream
-        g = _Graph(camera, image, depth, unc, state.params.means.device)
+        g = _Graph(inputs, state.params.means.device)
         s.wait_stream(torch.cuda.current_stream())
+        # the warm-ups also run the step's collectives on the capture
+        # stream before the capture, as NCCL wants
         with torch.cuda.stream(s), rc.launches_on(s, rc.launches_warmup):
             warm = copy.deepcopy(state)
             for _ in range(WARMUP_ITERS):
-                self.body(warm, *g.inputs(), sh)
+                self._run(warm, g.inputs, sh)
             del warm
         torch.cuda.current_stream().wait_stream(s)
         # "thread_local": a live viewer renders (and syncs) on its own
@@ -152,9 +205,18 @@ class GraphedStep:
         with rc.launches_on(s, g.launches), torch.cuda.graph(
                 g.graph, pool=self.pool, stream=s,
                 capture_error_mode="thread_local"):
-            g.metrics = self.body(state, *g.inputs(), sh)
+            g.metrics = self._run(state, g.inputs, sh)
         for k in [k for k in self.graphs if k[-1] != key[-1]]:
             del self.graphs[k]
         self.graphs[key] = g
         self.events["capture"] += 1
         return g
+
+
+def view_index(view_idx, device) -> torch.Tensor:
+    """``view_idx`` as a (1,) int64 tensor on ``device``: the pose step's
+    view, which a graph takes as a static input.  A tensor is taken as it
+    is; an int is filled in on the device (no copy from the host)."""
+    if isinstance(view_idx, torch.Tensor):
+        return view_idx.reshape(1)
+    return torch.full((1,), int(view_idx), dtype=torch.int64, device=device)

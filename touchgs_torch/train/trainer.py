@@ -8,8 +8,9 @@ growth; checkpoints through ``train/checkpoint.py``; with
 model (``models/pose_opt.py``).  Parameters, Adam moments and densify
 statistics are updated in place where the JAX package returns new arrays,
 through the step, refine and the opacity reset alike.  On CUDA the kernel
-path's step runs as a CUDA graph (``train/graphs.py``), the counterpart
-of the JAX package's jitted, donated step.  ``run(viewer=...)`` publishes
+path's step, with or without the pose optimizer and ``tile_shards``, runs
+as a CUDA graph (``train/graphs.py``), the counterpart of the JAX
+package's jitted, donated step.  ``run(viewer=...)`` publishes
 the status and a clone of the parameters to a live ``viewer.ViewerServer``
 at each log point.
 """
@@ -39,7 +40,7 @@ from touchgs_torch.models.gaussians import (
 )
 from touchgs_torch.models.pose_opt import apply_pose_delta
 from touchgs_torch.models.splatfacto import compute_losses, render
-from touchgs_torch.train.graphs import GraphedStep
+from touchgs_torch.train.graphs import GraphedStep, view_index
 from touchgs_torch.train.optim import (
     PARAM_GROUPS,
     FusedAdam,
@@ -90,12 +91,13 @@ def _finite_dead_slots(gauss: dict, alive: torch.Tensor) -> dict:
     gradient at 0, in both packages); they render nothing, but the camera's
     gradient sums every slot's projection Jacobian, and 0·NaN would make it
     NaN.  ``torch.where`` passes the live slots' values and gradients
-    unchanged (ROADMAP.md C21)."""
+    unchanged (ROADMAP.md C21).  Device ops only: the graphed pose step
+    takes it."""
     out = {}
     for g, x in gauss.items():
         fill = torch.zeros_like(x)
         if g == "quats":
-            fill[:, 0] = 1.0
+            fill[:, 0].fill_(1.0)   # a fill, not a scalar from the host
         out[g] = torch.where(alive.view((-1,) + (1,) * (x.dim() - 1)), x,
                              fill)
     return out
@@ -108,22 +110,23 @@ def make_train_step(cfg: TrainConfig, optimizer: FusedAdam,
     """The train step: (state, camera, image, depth, unc, active_sh_degree
     [, view_idx]) → (state, metrics), updating ``state`` in place.
     ``view_idx`` selects the camera's row of ``state.pose_deltas`` when the
-    SO3xR3 pose optimizer is on (cfg.pose_opt.mode).  Metrics are device
-    scalars, so the step never waits for the device.  ``k_tile`` overrides
-    the config's per-tile entry cap; ``tile_shards`` composites the tile
-    grid in that many slices (``render``).
+    SO3xR3 pose optimizer is on (cfg.pose_opt.mode): a (1,) int64 tensor
+    on the state's device (``Trainer.view_index``) or an int.  Metrics are
+    device scalars, so the step never waits for the device.  ``k_tile``
+    overrides the config's per-tile entry cap; ``tile_shards`` composites
+    the tile grid in that many slices (``render``).
 
-    The kernel path (``cfg.model.rasterize.use_pallas``) without the pose
-    optimizer and without ``tile_shards`` returns a ``graphs.GraphedStep``:
-    on a state on CUDA it runs as a CUDA graph, on the CPU as the plain
-    step, its ``__wrapped__``; it counts its captures in
-    ``events["capture"]``.  The scan path (its checkpointed chunks), the
-    pose optimizer (it indexes the deltas by a Python ``view_idx``) and
-    ``tile_shards`` return the plain step, which runs eagerly."""
+    The kernel path (``cfg.model.rasterize.use_pallas``), with or without
+    the pose optimizer and ``tile_shards``, returns a
+    ``graphs.GraphedStep``: on a state on CUDA it runs as a CUDA graph (the
+    pose step's view index one of its inputs, so one graph serves every
+    view), on the CPU as the plain step, its ``__wrapped__``; it counts its
+    captures in ``events["capture"]``.  The scan path (its checkpointed
+    chunks) returns the plain step, which runs eagerly."""
     pose_on = cfg.pose_opt.mode != "off"
 
     def body(state: TrainState, camera: Camera, image, depth, unc,
-             active_sh_degree: int, view_idx: Optional[int] = None) -> dict:
+             active_sh_degree: int, view_idx=None) -> dict:
         """The step's device work; returns the metrics."""
         params = state.params
         C = params.capacity
@@ -136,7 +139,11 @@ def make_train_step(cfg: TrainConfig, optimizer: FusedAdam,
             diff["pose_deltas"] = state.pose_deltas.detach().requires_grad_(
                 True)
             targets["pose_deltas"] = state.pose_deltas
-            cam = apply_pose_delta(camera, diff["pose_deltas"][view_idx])
+            # the view's row by a device index: no host read, and one
+            # captured graph serves every view
+            idx = view_index(view_idx, params.means.device)
+            cam = apply_pose_delta(
+                camera, diff["pose_deltas"].index_select(0, idx)[0])
             gauss = _finite_dead_slots(gauss, params.alive)
         offset0 = torch.zeros((C, 2), device=params.means.device,
                               requires_grad=True)
@@ -167,18 +174,18 @@ def make_train_step(cfg: TrainConfig, optimizer: FusedAdam,
         return metrics
 
     def step_fn(state: TrainState, camera: Camera, image, depth, unc,
-                active_sh_degree: int, view_idx: Optional[int] = None):
+                active_sh_degree: int, view_idx=None):
         metrics = body(state, camera, image, depth, unc, active_sh_degree,
                        view_idx)
         state.step += 1
         return state, metrics
 
-    if pose_on or tile_shards or not cfg.model.rasterize.use_pallas:
+    if not cfg.model.rasterize.use_pallas:
         return step_fn
-    return GraphedStep(step_fn, body, events)
+    return GraphedStep(step_fn, body, events, view_input=pose_on)
 
 
-def _assign(dst, src) -> None:
+def assign_fields(dst, src) -> None:
     """Copy every tensor field of the dataclass ``src`` into ``dst``'s."""
     for f in dataclasses.fields(dst):
         getattr(dst, f.name).copy_(getattr(src, f.name))
@@ -197,8 +204,8 @@ def refine_state(state: TrainState, cfg: TrainConfig, do_densify=True,
         split_noise=split_noise, generator=generator,
     )
     reset_opt_slots(state.opt_state, touched)
-    _assign(state.params, params)
-    _assign(state.densify, densify)
+    assign_fields(state.params, params)
+    assign_fields(state.densify, densify)
     return state
 
 
@@ -316,15 +323,26 @@ class Trainer:
         self.history: list[dict] = []
         self._batch_cache: dict = {}
         self._batch_cache_bytes = 0
+        self._view_indices: dict = {}
 
     def _generator(self, seed: int) -> torch.Generator:
         g = torch.Generator(device=self.device)
         g.manual_seed(seed)
         return g
 
+    def view_index(self, view_idx: int) -> torch.Tensor:
+        """The view as the (1,) int64 device tensor the pose step takes
+        (its row of ``state.pose_deltas``), made once a view."""
+        t = self._view_indices.get(view_idx)
+        if t is None:
+            t = self._view_indices[view_idx] = view_index(view_idx,
+                                                          self.device)
+        return t
+
     def _batch(self, view_idx: int):
         """(camera, image, depth, unc) on the device, cached up to
-        ``cfg.view_cache_bytes`` so views are uploaded once."""
+        ``cfg.view_cache_bytes`` so views are uploaded once; the view's
+        index tensor is ``view_index``'s."""
         hit = self._batch_cache.get(view_idx)
         if hit is not None:
             return hit
@@ -370,7 +388,7 @@ class Trainer:
             cam, image, depth, unc = self._batch(view)
             self.state, metrics = self.train_step(
                 self.state, cam, image, depth, unc,
-                self.active_sh_degree(step), view)
+                self.active_sh_degree(step), self.view_index(view))
             if "lossy_tiles" in metrics:
                 # device scalars — no sync; the guard reads the window max
                 # at log points so truncation between them is seen too.  A
