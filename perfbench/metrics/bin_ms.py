@@ -1,0 +1,13 @@
+"""Device milliseconds a graphed step in its bin stage, the binning: tile
+keys, sort and ``searchsorted`` (``bin_gaussians``): the window's
+``stage_bin_ms`` over ``stage_samples`` (``Trainer.events``, from the
+stage events inside the CUDA graph).  None where the program keeps no
+stage events."""
+
+
+def read(record: dict):
+    ev = record["window"]["events"]
+    n = ev.get("stage_samples")
+    if not n or "stage_bin_ms" not in ev:
+        return None
+    return ev["stage_bin_ms"] / n

@@ -376,13 +376,6 @@ def test_measure_refuses_the_cpu():
             tprof.measure(lambda: None)
 
 
-def test_trace_writes_a_chrome_trace(tmp_path):
-    with tprof.trace(str(tmp_path)) as prof:
-        torch.ones(64).cumsum(0)
-    assert (tmp_path / "trace.json").stat().st_size > 0
-    assert len(prof.key_averages()) > 0
-
-
 def test_compile_smoke_plain():
     x = torch.arange(8 * 128, dtype=torch.float32).reshape(8, 128)
     out = cuda_build.compile_smoke(x)

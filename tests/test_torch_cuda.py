@@ -33,6 +33,7 @@ from touchgs_torch.train.graphs import GraphedStep
 from touchgs_torch.train.trainer import (Trainer, grow_state,
                                          make_train_step, refine_state,
                                          reset_opacity_state)
+from touchgs_torch.utils import telemetry
 
 W, H = 96, 64           # 3x2 tiles of 32x32
 K_TILE, K_CHUNK = 512, 64
@@ -299,7 +300,9 @@ def test_trainer_sh_degree_0_on_card(cuda_device):
             1024, 0, 3)
         # on the card the graphed step captures at step 0 and after the
         # growth (new tensors); the refines write in place and cost none
-        assert trainer.events == {
+        counts = {k: trainer.events[k]
+                  for k in ("grow", "refine", "reset_opacity", "capture")}
+        assert counts == {
             "grow": 1, "refine": 3, "reset_opacity": 0,
             "capture": 2 if device == "cuda" else 0}, trainer.events
         assert int(p.num_alive) > N                 # the refine densified
@@ -1460,6 +1463,79 @@ def test_graphed_step_matches_eager(cuda_device):
         "composite_bwd": w}
     assert np.isfinite(logs["graph"]).all()
     np.testing.assert_allclose(logs["graph"], logs["eager"], rtol=1e-3)
+
+
+def _stage_scene(n_views=2, w=384, h=256, n=40_000) -> Scene:
+    """``n_views`` random ``w``x``h`` views of ``n`` seeds: a step of a
+    few milliseconds, so that a graph launch's fixed cost is a small part
+    of it."""
+    rng = np.random.default_rng(1)
+    c2w = np.stack([look_at_c2w((2.0 * np.cos(t), 0.6, 2.0 * np.sin(t)))
+                    for t in np.linspace(0.4, 1.2, n_views)])
+    f = np.full(n_views, 300.0, np.float32)
+    cams = Cameras(fx=f, fy=f.copy(), cx=np.full(n_views, w / 2, np.float32),
+                   cy=np.full(n_views, h / 2, np.float32), c2w=c2w, width=w,
+                   height=h)
+    return Scene(
+        cameras=cams,
+        images=rng.uniform(0, 1, (n_views, h, w, 3)).astype(np.float32),
+        depths=rng.uniform(1.5, 3.0, (n_views, h, w)).astype(np.float32),
+        uncertainties=None, i_train=np.arange(n_views),
+        i_eval=np.array([], int),
+        seed_points=rng.uniform(-0.5, 0.5, (n, 3)).astype(np.float32),
+        seed_colors=rng.uniform(0, 1, (n, 3)).astype(np.float32),
+        scale_factor=1.0, transform=np.eye(4)[:3], name="stages")
+
+
+@pytest.mark.cuda
+def test_graphed_stages_add_up_to_the_replay(cuda_device):
+    """The stage intervals that a replay's own event nodes record
+    (``telemetry.StageEvents``) come in ``telemetry.STAGES``' order and
+    add up to the replay's time between CUDA events around
+    ``graph.replay()`` within 2% (median of 20 replays)."""
+    cfg = TrainConfig(model=ModelConfig(
+        max_gaussians=131072, sh_degree=3,
+        rasterize=RasterizeConfig(use_pallas=True)),
+        sh_degree_interval=1, log_every=1)
+    trainer = Trainer(_stage_scene(), cfg)
+    step = trainer.train_step
+    state, _ = step(trainer.state, *trainer._batch(0), 3)
+    (g,) = step.graphs.values()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ratios = []
+    for _ in range(20):
+        a.record()
+        g.graph.replay()
+        b.record()
+        b.synchronize()
+        stages = g.stages.ms()
+        assert list(stages) == list(telemetry.STAGES), stages
+        assert all(ms > 0 for ms in stages.values()), stages
+        ratios.append(sum(stages.values()) / a.elapsed_time(b))
+    assert abs(float(np.median(ratios)) - 1.0) <= 0.02, ratios
+
+
+@pytest.mark.cuda
+def test_capture_ms_once_per_capture(cuda_device):
+    """Each capture adds its host milliseconds (warm-ups and capture) to
+    ``events["capture_ms"]`` once, after one drain of the stream counted
+    in ``host_reads``; replays add neither.  A ``Trainer.run`` on the card
+    takes one stage sample at each log point."""
+    trainer = _graph_trainer()
+    ev, step = trainer.events, trainer.train_step
+    state, batch = trainer.state, trainer._batch(0)
+    seen = []
+    for sh in (0, 0, 1, 1):
+        state, _ = step(state, *batch, sh)
+        seen.append((ev["capture"], ev["capture_ms"], ev["host_reads"]))
+    torch.cuda.synchronize()
+    (c, ms, reads) = zip(*seen)
+    assert c == (1, 1, 2, 2) and reads == (1, 1, 2, 2), seen
+    assert 0 < ms[0] == ms[1] < ms[2] == ms[3], seen
+    samples = ev["stage_samples"]
+    trainer.run(state.step + 3)                  # log_every 1
+    assert ev["stage_samples"] == samples + 3, ev
+    assert all(ev[f"stage_{s}_ms"] > 0 for s in telemetry.STAGES), ev
 
 
 @pytest.mark.cuda

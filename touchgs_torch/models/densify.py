@@ -17,6 +17,7 @@ import torch
 from touchgs_torch.config import DensifyConfig
 from touchgs_torch.models.gaussians import GaussianParams
 from touchgs_torch.ops.projection import quat_to_rotmat
+from touchgs_torch.utils import telemetry
 
 
 @dataclasses.dataclass
@@ -62,6 +63,7 @@ def _scatter_children(params: GaussianParams, child_slot, child_ok,
                       new_means, new_log_scales) -> GaussianParams:
     """Write child rank r (source gaussian r) into ``child_slot[r]`` where
     ``child_ok[r]``; everything but means and log-scales is inherited."""
+    telemetry.count_read()   # nonzero reads its count back
     src = torch.nonzero(child_ok).squeeze(-1)
     dst = child_slot[src]
 
@@ -97,7 +99,8 @@ def refine(
     trainer zeroes their optimizer moments.  ``split_noise`` is the
     (split_samples, C, 3) standard-normal noise of the split children;
     when None it is drawn from ``generator``.  The flags are splatfacto's
-    step-dependent schedule (see ``touchgs_tpu/models/densify.py``).
+    step-dependent schedule (see ``touchgs_tpu/models/densify.py``).  Its
+    reads back to the host are counted (``telemetry.count_read``).
     """
     C = params.capacity
     dev = params.means.device
@@ -119,6 +122,7 @@ def refine(
 
     # free slots, stable order (dead first)
     dead_first = torch.argsort(params.alive.to(torch.int32), stable=True)
+    telemetry.count_read()
     n_free = C - int(params.alive.sum())
 
     # priority: higher-gradient sources allocate first when slots are scarce
@@ -155,7 +159,10 @@ def refine(
         )
         new_params = _scatter_children(new_params, child_slot, ok,
                                        child_means, child_log_scales)
-        touched[child_slot[ok]] = True
+        # a mask's index reads its count back; the fill copies nothing
+        # from the host (an assigned True would, and wait for the queue)
+        telemetry.count_read()
+        touched.index_fill_(0, child_slot[ok], True)
 
     # split sources die (replaced by children)
     died_split = do_split & (offsets + cfg.split_samples - 1 < n_free)
@@ -179,8 +186,9 @@ def refine(
 
 
 def reset_opacities(params: GaussianParams, value: float) -> GaussianParams:
-    """Periodic opacity clamp-down (3DGS `reset_opacity`)."""
-    cap = torch.log(torch.tensor(value / (1.0 - value),
-                                 device=params.logit_opacities.device))
+    """Periodic opacity clamp-down (3DGS `reset_opacity`).  The cap is
+    filled in on the device: no copy from the host waits for the queue."""
+    cap = torch.log(torch.full((), value / (1.0 - value),
+                               device=params.logit_opacities.device))
     return dataclasses.replace(
         params, logit_opacities=torch.minimum(params.logit_opacities, cap))

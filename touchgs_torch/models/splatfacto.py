@@ -31,6 +31,7 @@ from touchgs_torch.ops.rasterize_ref import RenderOutput, rasterize_dense
 from touchgs_torch.ops.rasterize_tiled import rasterize_tiled
 from touchgs_torch.ops.sh import eval_sh
 from touchgs_torch.ops.ssim import ssim_cm
+from touchgs_torch.utils import telemetry
 
 
 def shade(
@@ -105,6 +106,7 @@ def render(
         k_tile = rcfg.k_tile
     proj, colors, opacities, bg = shade(params, camera, cfg, active_sh_degree,
                                         background, means2d_offset)
+    telemetry.mark("shade")
     if use_dense:
         if mesh is not None:
             raise ValueError("the dense oracle renders one process's rows: "
@@ -126,6 +128,7 @@ def render(
             background=bg, k_tile=k_tile, tile_shards=tile_shards,
             mesh=mesh,
         )
+    telemetry.mark("composite")
     return out, proj
 
 

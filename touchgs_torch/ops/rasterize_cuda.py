@@ -55,6 +55,7 @@ from touchgs_torch.ops.rasterize_ref import RenderOutput
 from touchgs_torch.ops.tiles import (TileBins, bin_gaussians,
                                      gather_projection,
                                      gather_scene_projections)
+from touchgs_torch.utils import telemetry
 
 _LOG2E = 1.4426950408889634
 _DMA_ALIGN = 128  # k_tile stays a multiple of this, as in the JAX package
@@ -435,11 +436,13 @@ def rasterize_cuda(
         if bins is None:
             bins = bin_gaussians(gather_projection(proj, mesh), width,
                                  height, cfg)
+        telemetry.mark("bin")
         attrs = _with_dead_rows(mesh.gather_rows(
             _attr_rows(proj, colors, opacities)))
     else:
         if bins is None:
             bins = bin_gaussians(proj, width, height, cfg)
+        telemetry.mark("bin")
         attrs = _pack_attrs(proj, colors, opacities)
     N = attrs.shape[0] - plain.DEAD_SPREAD
     k_tile = _fit_k_tile(cfg.k_tile if k_tile is None else k_tile, k_chunk,

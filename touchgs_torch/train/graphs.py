@@ -37,7 +37,14 @@ buffer, so one graph serves every view, as the JAX step's traced
 ``view_idx`` does.  The k_tile is fixed per step (``make_train_step``'s
 argument): the truncation guard's escalation makes a new step.  Graphs
 whose tensors are gone are dropped after the next capture.  ``events
-["capture"]`` counts the captures.
+["capture"]`` counts the captures and ``events["capture_ms"]`` adds their
+host milliseconds, warm-ups included (``telemetry.timer``), after a wait
+for the steps queued before, counted and timed as a read, so that they
+leave out the drain of the queue.
+
+Stages: the capture records a timing event at each ``telemetry.mark`` of
+the body, a node of the graph (``telemetry.StageEvents``);
+``take_stage_ms`` gives the last replay's stage milliseconds once.
 
 A capture or replay that fails raises: nothing falls back to the eager
 step.  A state on the CPU runs ``__wrapped__``, the plain step, as each
@@ -59,6 +66,7 @@ from typing import Callable, Optional
 import torch
 
 from touchgs_torch.ops import rasterize_cuda as rc
+from touchgs_torch.utils import telemetry
 
 WARMUP_ITERS = 3  # eager calls on a clone before a capture
 
@@ -115,14 +123,15 @@ def _spec(x):
 
 class _Graph:
     """One captured step: the graph, its static inputs (a flat tuple of
-    cameras, tensors and Nones of the graph's own), its metrics and the
-    kernel launches of its capture."""
+    cameras, tensors and Nones of the graph's own), its metrics, the
+    kernel launches of its capture and its stage events."""
 
     def __init__(self, inputs: tuple, device):
         self.inputs = tuple(_own(x, device) for x in inputs)
         self.graph = torch.cuda.CUDAGraph()
         self.metrics: dict = {}
         self.launches = dict.fromkeys(rc.launches, 0)
+        self.stages = telemetry.StageEvents()
 
     def replay(self, inputs: tuple) -> None:
         for dst, src in zip(self.inputs, inputs):
@@ -157,6 +166,7 @@ class GraphedStep:
         self.graphs: dict = {}
         self.pool = None      # the graphs' shared memory pool
         self._stream = None   # warm-up and capture stream
+        self._replayed = None  # the graph replayed last, until read
 
     def __call__(self, state, camera, image, depth, unc, active_sh_degree,
                  *extra):
@@ -174,42 +184,60 @@ class GraphedStep:
         if g is None:
             g = self._capture(key, state, inputs, sh)
         g.replay(inputs)
+        self._replayed = g
         state.step += 1
         return state, g.metrics
+
+    def take_stage_ms(self) -> dict:
+        """The last replay's milliseconds by stage (``telemetry.
+        StageEvents.ms``), once; empty where nothing replayed since the
+        last call.  The replay must have finished."""
+        g, self._replayed = self._replayed, None
+        return {} if g is None else g.stages.ms()
 
     def _run(self, state, inputs: tuple, sh: int) -> dict:
         return self.body(state, *inputs[:4], sh, *inputs[4:])
 
     def _capture(self, key, state, inputs: tuple, sh: int) -> _Graph:
-        """Warm up on a clone of ``state``, then capture ``body`` on
-        ``state`` itself; runs none of the captured work.  Then drop the
-        graphs whose tensors are gone: after the capture, since a pool
-        that no graph holds any more is released and cannot take
+        """Wait for the steps queued before, then warm up on a clone of
+        ``state`` and capture ``body`` on ``state`` itself, its marks as
+        the graph's stage events; runs none of the captured work.  The
+        wait is a read, the warm-ups and the capture ``capture_ms``.  Then
+        drop the graphs whose tensors are gone: after the capture, since a
+        pool that no graph holds any more is released and cannot take
         another."""
-        if self.pool is None:
-            self.pool = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream()
-        s = self._stream
-        g = _Graph(inputs, state.params.means.device)
-        s.wait_stream(torch.cuda.current_stream())
-        # the warm-ups also run the step's collectives on the capture
-        # stream before the capture, as NCCL wants
-        with torch.cuda.stream(s), rc.launches_on(s, rc.launches_warmup):
-            warm = copy.deepcopy(state)
-            for _ in range(WARMUP_ITERS):
-                self._run(warm, g.inputs, sh)
-            del warm
-        torch.cuda.current_stream().wait_stream(s)
-        # "thread_local": a live viewer renders (and syncs) on its own
-        # thread while the trainer captures
-        with rc.launches_on(s, g.launches), torch.cuda.graph(
-                g.graph, pool=self.pool, stream=s,
-                capture_error_mode="thread_local"):
-            g.metrics = self._run(state, g.inputs, sh)
+        ev = self.events
+        # the warm-ups' launches would wait behind the queued steps, and
+        # the capture waits for them on entry: drained first, they are
+        # not the capture's time
+        with telemetry.span(ev, "read"):
+            telemetry.drain(state.params.means.device)
+        with telemetry.timer(ev, "capture_ms", "capture"):
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+                self._stream = torch.cuda.Stream()
+            s = self._stream
+            g = _Graph(inputs, state.params.means.device)
+            s.wait_stream(torch.cuda.current_stream())
+            # the warm-ups also run the step's collectives on the capture
+            # stream before the capture, as NCCL wants
+            with torch.cuda.stream(s), rc.launches_on(s, rc.launches_warmup):
+                warm = copy.deepcopy(state)
+                for _ in range(WARMUP_ITERS):
+                    self._run(warm, g.inputs, sh)
+                del warm
+            torch.cuda.current_stream().wait_stream(s)
+            # "thread_local": a live viewer renders (and syncs) on its own
+            # thread while the trainer captures
+            with rc.launches_on(s, g.launches), torch.cuda.graph(
+                    g.graph, pool=self.pool, stream=s,
+                    capture_error_mode="thread_local"), \
+                    telemetry.marks_to(g.stages):
+                g.metrics = self._run(state, g.inputs, sh)
         for k in [k for k in self.graphs if k[-1] != key[-1]]:
             del self.graphs[k]
         self.graphs[key] = g
-        self.events["capture"] += 1
+        ev["capture"] += 1
         return g
 
 

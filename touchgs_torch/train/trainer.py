@@ -47,6 +47,7 @@ from touchgs_torch.train.optim import (
     FusedAdamState,
     reset_opt_slots,
 )
+from touchgs_torch.utils import telemetry
 
 
 @dataclasses.dataclass
@@ -127,7 +128,10 @@ def make_train_step(cfg: TrainConfig, optimizer: FusedAdam,
 
     def body(state: TrainState, camera: Camera, image, depth, unc,
              active_sh_degree: int, view_idx=None) -> dict:
-        """The step's device work; returns the metrics."""
+        """The step's device work; returns the metrics.  Its marks close
+        the stages that ``telemetry.STAGES`` names (``render`` marks
+        shade, bin and composite)."""
+        telemetry.mark("start")
         params = state.params
         C = params.capacity
         diff = {g: getattr(params, g).detach().requires_grad_(True)
@@ -154,9 +158,12 @@ def make_train_step(cfg: TrainConfig, optimizer: FusedAdam,
         )
         losses = compute_losses(out, image, depth, unc, cfg.depth,
                                 cfg.ssim_lambda)
+        telemetry.mark("loss")
         grads = torch.autograd.grad(losses.total,
                                     list(diff.values()) + [offset0])
+        telemetry.mark("backward")
         optimizer.step(targets, dict(zip(diff, grads[:-1])), state.opt_state)
+        telemetry.mark("adam")
         # the radii come out of the graph (ceil): kept out of it, so the
         # statistics hold no step's autograd graph alive
         update_stats(state.densify, grads[-1], proj.radii.detach(),
@@ -171,6 +178,7 @@ def make_train_step(cfg: TrainConfig, optimizer: FusedAdam,
         }
         if out.lossy_tiles is not None:  # the tile kernels' telemetry
             metrics["lossy_tiles"] = out.lossy_tiles
+        telemetry.mark("stats")
         return metrics
 
     def step_fn(state: TrainState, camera: Camera, image, depth, unc,
@@ -312,10 +320,11 @@ class Trainer:
         # the largest lossy_tiles of the steps since the last check (a
         # device scalar)
         self._lossy_max: Optional[torch.Tensor] = None
-        # how often run() grew the capacity, refined and reset the
-        # opacities, and the graphed step captured
-        self.events = {"grow": 0, "refine": 0, "reset_opacity": 0,
-                       "capture": 0}
+        # the run's account (``utils/telemetry.py``): how often run()
+        # grew the capacity, refined and reset the opacities and the
+        # graphed step captured; the host's milliseconds by span and its
+        # reads; the graphed step's device milliseconds by stage
+        self.events = telemetry.new_events()
         self.train_step = make_train_step(cfg, self.optimizer,
                                           events=self.events)
         self.rng = np.random.default_rng(cfg.seed)
@@ -383,97 +392,135 @@ class Trainer:
             self.generator = self._generator(cfg.seed + start)
         t0 = time.time()
         last_metrics = {}
+        ev = self.events
+        span = telemetry.span
         for step in range(start, steps):
-            view = int(self.rng.choice(self.scene.i_train))
-            cam, image, depth, unc = self._batch(view)
-            self.state, metrics = self.train_step(
-                self.state, cam, image, depth, unc,
-                self.active_sh_degree(step), self.view_index(view))
-            if "lossy_tiles" in metrics:
-                # device scalars — no sync; the guard reads the window max
-                # at log points so truncation between them is seen too.  A
-                # graphed step's metrics are overwritten by its next
-                # replay, so the max is kept in a tensor of the trainer's
-                lossy = metrics["lossy_tiles"]
-                self._lossy_max = (
-                    lossy.clone() if self._lossy_max is None
-                    else torch.maximum(self._lossy_max, lossy))
+            with span(ev, "fetch"):
+                view = int(self.rng.choice(self.scene.i_train))
+                cam, image, depth, unc = self._batch(view)
+                sh, view_idx = (self.active_sh_degree(step),
+                                self.view_index(view))
+            with span(ev, "dispatch"):
+                self.state, metrics = self.train_step(
+                    self.state, cam, image, depth, unc, sh, view_idx)
+                if "lossy_tiles" in metrics:
+                    # device scalars — no sync; the guard reads the window
+                    # max at log points so truncation between them is seen
+                    # too.  A graphed step's metrics are overwritten by its
+                    # next replay, so the max is kept in a tensor of the
+                    # trainer's
+                    lossy = metrics["lossy_tiles"]
+                    self._lossy_max = (
+                        lossy.clone() if self._lossy_max is None
+                        else torch.maximum(self._lossy_max, lossy))
             if (
                 dcfg.warmup_steps <= step < dcfg.stop_refine_at
                 and step % dcfg.refine_every == 0
                 and step > 0
             ):
                 cap = self.state.params.capacity
-                if (cfg.grow_capacity and cap < cfg.model.max_gaussians
-                        and float(self.state.params.num_alive)
-                        > cfg.grow_trigger_fraction * cap):
-                    self.state = grow_state(
-                        self.state, min(cap * 2, cfg.model.max_gaussians))
-                    self.events["grow"] += 1
+                with span(ev, "read"):
+                    # the steps queued before the refine drain here, so
+                    # that the growth and the refine time their own work
+                    telemetry.drain(self.device)
+                    grow = (cfg.grow_capacity
+                            and cap < cfg.model.max_gaussians)
+                    if grow:
+                        telemetry.count_read()
+                        grow = (float(self.state.params.num_alive)
+                                > cfg.grow_trigger_fraction * cap)
+                if grow:
+                    with span(ev, "grow"):
+                        self.state = grow_state(
+                            self.state, min(cap * 2, cfg.model.max_gaussians))
+                    ev["grow"] += 1
                 # splatfacto's schedule: pause densification after each
                 # opacity reset; size culling after the first reset period;
                 # screen-size gates until stop_screen_size_at
                 pause = min(len(self.scene.i_train) + dcfg.refine_every,
                             dcfg.reset_opacity_every // 2)
                 do_densify = (step % dcfg.reset_opacity_every) > pause
-                self.state = refine_state(
-                    self.state, cfg, do_densify,
-                    step > dcfg.reset_opacity_every,
-                    step < dcfg.stop_screen_size_at,
-                    generator=self.generator,
-                )
-                self.events["refine"] += 1
+                with span(ev, "refine"):
+                    self.state = refine_state(
+                        self.state, cfg, do_densify,
+                        step > dcfg.reset_opacity_every,
+                        step < dcfg.stop_screen_size_at,
+                        generator=self.generator,
+                    )
+                ev["refine"] += 1
             if (step > 0 and step % dcfg.reset_opacity_every == 0
                     and step < dcfg.stop_refine_at):
-                self.state = reset_opacity_state(self.state, cfg)
-                self.events["reset_opacity"] += 1
+                with span(ev, "reset"):
+                    self.state = reset_opacity_state(self.state, cfg)
+                ev["reset_opacity"] += 1
             if step % cfg.log_every == 0 or step == steps - 1:
-                last_metrics = {k: float(v) for k, v in metrics.items()}
-                last_metrics["step"] = step
-                # truncation guard: when more than 0.5% of tiles (at least
-                # 2, at most half) are capped and unsaturated on two
-                # consecutive log windows — max over every step of the
-                # window — double the per-tile entry cap
-                rcfg = cfg.model.rasterize
-                n_tiles = (-(-self.scene.cameras.width // rcfg.tile_w)
-                           * -(-self.scene.cameras.height // rcfg.tile_h))
-                if self._lossy_max is not None:
-                    window_lossy = float(self._lossy_max)
-                    self._lossy_max = None
-                    last_metrics["lossy_tiles_window_max"] = window_lossy
-                else:  # the scan path reports no truncation
-                    window_lossy = 0.0
-                thr = min(max(0.005 * n_tiles, 2.0), 0.5 * n_tiles)
-                if window_lossy > thr:
-                    self._lossy_streak += 1
-                else:
-                    self._lossy_streak = 0
-                cur_k = self._k_tile or rcfg.k_tile
-                if self._lossy_streak >= 2 and cur_k < rcfg.k_tile_max_train:
-                    # clamped at the ceiling (ROADMAP.md C6; the JAX package
-                    # doubles unclamped, the same for power-of-two defaults)
-                    self._k_tile = min(cur_k * 2, rcfg.k_tile_max_train)
-                    self._lossy_streak = 0
-                    self.train_step = make_train_step(
-                        cfg, self.optimizer, k_tile=self._k_tile,
-                        events=self.events)
-                    last_metrics["k_tile_escalated_to"] = self._k_tile
-                last_metrics["iters_per_sec"] = (
-                    (step + 1 - start) / (time.time() - t0))
-                self.history.append(last_metrics)
-                if log_fn:
-                    log_fn(last_metrics)
-                if viewer is not None:
-                    viewer.update_status(
-                        step, last_metrics.get("loss", float("nan")),
-                        last_metrics.get("num_alive", 0),
-                        training=step < steps - 1)
+                with span(ev, "read"):
+                    telemetry.count_read(n=len(metrics))
+                    last_metrics = {k: float(v) for k, v in metrics.items()}
+                    window_lossy = None
+                    if self._lossy_max is not None:
+                        telemetry.count_read()
+                        window_lossy = float(self._lossy_max)
+                        self._lossy_max = None
+                with span(ev, "log"):
+                    # the reads waited for the step: its replay's stage
+                    # events are done
+                    take = getattr(self.train_step, "take_stage_ms", None)
+                    if take is not None:
+                        telemetry.add_stages(ev, take())
+                    self._log_point(step, steps, start, t0, last_metrics,
+                                    window_lossy, log_fn, viewer)
             if ckpt_manager is not None and (
                 (step + 1) % cfg.checkpoint_every == 0 or step == steps - 1
             ):
-                extra = {"k_tile": self._k_tile} if self._k_tile else None
-                ckpt_manager.save(step + 1, self.state, extra=extra)
+                with span(ev, "ckpt"):
+                    extra = {"k_tile": self._k_tile} if self._k_tile else None
+                    ckpt_manager.save(step + 1, self.state, extra=extra)
         return last_metrics
+
+    def _log_point(self, step: int, steps: int, start: int, t0: float,
+                   last_metrics: dict, window_lossy: Optional[float],
+                   log_fn, viewer) -> None:
+        """A log point after its reads: the truncation guard, the history,
+        ``log_fn`` and the viewer's status."""
+        cfg = self.cfg
+        last_metrics["step"] = step
+        # truncation guard: when more than 0.5% of tiles (at least 2, at
+        # most half) are capped and unsaturated on two consecutive log
+        # windows — max over every step of the window — double the
+        # per-tile entry cap
+        rcfg = cfg.model.rasterize
+        n_tiles = (-(-self.scene.cameras.width // rcfg.tile_w)
+                   * -(-self.scene.cameras.height // rcfg.tile_h))
+        if window_lossy is not None:
+            last_metrics["lossy_tiles_window_max"] = window_lossy
+        else:  # the scan path reports no truncation
+            window_lossy = 0.0
+        thr = min(max(0.005 * n_tiles, 2.0), 0.5 * n_tiles)
+        if window_lossy > thr:
+            self._lossy_streak += 1
+        else:
+            self._lossy_streak = 0
+        cur_k = self._k_tile or rcfg.k_tile
+        if self._lossy_streak >= 2 and cur_k < rcfg.k_tile_max_train:
+            # clamped at the ceiling (ROADMAP.md C6; the JAX package
+            # doubles unclamped, the same for power-of-two defaults)
+            self._k_tile = min(cur_k * 2, rcfg.k_tile_max_train)
+            self._lossy_streak = 0
+            self.train_step = make_train_step(
+                cfg, self.optimizer, k_tile=self._k_tile,
+                events=self.events)
+            last_metrics["k_tile_escalated_to"] = self._k_tile
+        last_metrics["iters_per_sec"] = (
+            (step + 1 - start) / (time.time() - t0))
+        self.history.append(last_metrics)
+        if log_fn:
+            log_fn(last_metrics)
+        if viewer is not None:
+            viewer.update_status(
+                step, last_metrics.get("loss", float("nan")),
+                last_metrics.get("num_alive", 0),
+                training=step < steps - 1)
 
     def render_view(self, view_idx: int, use_dense: bool = False):
         cam = self.scene.cameras.at(view_idx, self.device)

@@ -1,4 +1,5 @@
-"""Profiling helpers and pose transforms of the port.
+"""Profiling helpers, the training loop's account of itself
+(``telemetry``) and pose transforms of the port.
 
 The JAX package's ``utils/cache.py`` (the persistent XLA compile cache) has
 no counterpart: nothing here is compiled by XLA.  What the port compiles is

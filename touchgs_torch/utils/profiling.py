@@ -1,9 +1,6 @@
 """Profiling and per-kernel roofline accounting on the card (port of
 ``touchgs_tpu/utils/profiling.py``).
 
-- ``trace(log_dir)``: a ``torch.profiler`` context over CPU and CUDA
-  activity that writes a Chrome trace (open it in Perfetto or
-  chrome://tracing).
 - ``ChipSpec``, ``StageCost``, ``composite_cost``, ``binning_cost`` and
   ``report``: the analytic operation/byte models of the rasterization
   stages, with the same fields, formulas and ``unit`` values as the JAX
@@ -17,30 +14,12 @@
 """
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
-import os
 import subprocess
 from typing import Callable
 
 import torch
-
-
-@contextlib.contextmanager
-def trace(log_dir: str):
-    """torch.profiler over CPU and (where there is a card) CUDA activity;
-    writes ``<log_dir>/trace.json`` and yields the profiler, whose
-    ``key_averages()`` sum the time by operation."""
-    from torch.profiler import ProfilerActivity, profile
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
 @dataclasses.dataclass(frozen=True)
