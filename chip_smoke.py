@@ -27,11 +27,20 @@ Phases (any failure raises, and the script exits nonzero with no result):
    random cotangent (it prints whether it is bit-exact, as it should be).
    Median times over CUDA events.  Then a small scene rendered through the
    tile kernels against the dense oracle.
+2b. The SSIM pair of the loss (``ssim_fwd``, ``ssim_bwd``) against their
+   plain versions at 800x800x3 and 1280x720x3, read as the loss reads the
+   render, through the channel-major view of an (H, W, 3) image: the value
+   within rtol 1e-6 and dL/dx within 1e-5 of its largest, dL/dx laid out
+   as the image; each timed per call beside its plain version and the
+   band-matrix path it replaced (``ssim_cm_band``), on the device, and
+   against the bound of what the function must do (SSIM_FWD_OPS and
+   SSIM_BWD_VALUES; this design's own traffic printed beside it).
 3. The training path: ``Trainer(scene, cfg).run`` on an in-memory 4-view
    800x800 scene seeded with 100k points (capacity 131072), 5 warm-up and
    20 timed steps of the graphed step, with the launch counters set to 0
-   just before and read just after (25 launches of K1 with rows, K2 and
-   K3, none of K1's lists alone: each replay adds its capture's counts);
+   just before and read just after (25 launches of K1 with rows, K2, K3
+   and the SSIM pair, none of K1's lists alone: each replay adds its
+   capture's counts);
    then one lossless ``Trainer.render_view``.
 4. Where the step's device time goes: three more steps under
    torch.profiler, the kernels by device time and the busy share.
@@ -41,12 +50,14 @@ Phases (any failure raises, and the script exits nonzero with no result):
    (within rgb/acc 1e-4 and depth 1e-3 without it), then
    ``Trainer.run`` with the default ``RasterizeConfig()``, 2 warm-up and 5
    timed steps, with the launch counters set to 0 just before and read
-   just after (no launch of K1-K3); its median step and peak memory, and
+   just after (no launch of K1-K3, the SSIM pair once a step); its median
+   step and peak memory, and
    two more steps under torch.profiler.
 4b. The scale demo, ``touchgs_torch.tools.train_scale_demo.main`` at
    800x800 with its 100k GT Gaussians on a short schedule (``DEMO_ARGS``):
    at least two refines, one opacity reset and one capacity growth, K1
-   with rows, K2 and K3 each launched (counters set to 0 just before),
+   with rows, K2, K3 and the SSIM pair each launched (counters set to 0
+   just before),
    lossless GT renders and finite eval metrics.
 4c. The touch pipeline: its card path against its CPU path on the same
    inputs (``fuse_view`` at 400x400 with an injected permutation, atol
@@ -59,14 +70,15 @@ Phases (any failure raises, and the script exits nonzero with no result):
    ``touchgs_torch.tools.train_hard_scene.main`` on a short schedule
    (``TOUCH_ARGS``: 8 views at 400x400, 30 patches, 600 steps, SH degree
    0) with the launch counters set to 0 just before and read just after:
-   K1 with rows, K2 and K3 each launched, lossless GT renders, finite
-   metrics, touch on part of the sphere, and the touch arm's object depth
+   K1 with rows, K2, K3 and the SSIM pair each launched, lossless GT
+   renders, finite metrics, touch on part of the sphere, and the touch arm's object depth
    MAE below the vision arm's; its stage times.
 4d. The CLI, the user's entry point (``phase_cli``): a scene directory
    written at full width (12 views of 800x800, uint16-mm depth and
    uncertainty PNGs, 30k seeds) and loaded back exactly; ``cli train``
-   300 steps with the ``bunny_blender`` preset through K1-K3 (each launched
-   at least 300 times, counters set to 0 just before), a resume to step 400,
+   300 steps with the ``bunny_blender`` preset through K1-K3 and the SSIM
+   pair (each launched at least 300 times, counters set to 0 just before;
+   as often in the SO3xR3 run below), a resume to step 400,
    ``eval``, ``render``, ``export-splat``, the ``.ply`` re-rendered within
    rgb/acc 3e-5 and depth 3e-4 of the trainer's render, and 100 steps with
    ``--camera-optimizer SO3xR3``; its times.
@@ -81,7 +93,8 @@ Phases (any failure raises, and the script exits nonzero with no result):
    gpis-render, the GT depths as the aligning depths) with ``--zoe-weights``
    the ZoeD_N npz: every stage runs and is timed, ``zoe_depth/`` holds a
    positive depth map a view, the eval metrics are finite, and K1 with
-   rows, K2 and K3 are each launched (counters set to 0 just before;
+   rows, K2, K3 and the SSIM pair are each launched at least once a step
+   (counters set to 0 just before;
    ``launches_pipeline`` in the kernels line).  Then ``render_pc_depth``
    and ``point_cloud_to_depth_via_mesh`` (grid 96) on the scale demo's GT
    points, card against CPU, and the mesh's depth against the lossless GT
@@ -171,7 +184,7 @@ Phases (any failure raises, and the script exits nonzero with no result):
    40 timed steps of the bare train step at the flagship through K1-K3,
    then its roofline report): exit 0, one JSON line with a rate above 0,
    no note and the card named, its launch line showing K4 once and K1 with
-   rows, K2 and K3 at least 45 times each over its steps
+   rows, K2, K3 and the SSIM pair at least 45 times each over its steps
    (``launches_bench`` in the kernels line), its census with no lossy
    tile; its stderr echoed and its headline beside the train phase's
    median step.  Then ``touchgs_torch.tools.pair_stats`` on the card at
@@ -183,8 +196,8 @@ Phases (any failure raises, and the script exits nonzero with no result):
    after phase 4, from two copies of the train phase's state,
    GRAPH_STEPS steps with the plain step (``__wrapped__``) and as many
    as a CUDA graph on the same views at SH degree 3, each step's loss and
-   PSNR within rtol 1e-3, one capture, K1 with rows, K2 and K3 exactly
-   GRAPH_STEPS launches each on each side (counters set to 0 just before
+   PSNR within rtol 1e-3, one capture, K1 with rows, K2, K3 and the SSIM
+   pair exactly GRAPH_STEPS launches each on each side (counters set to 0 just before
    each; the warm-up's counted apart), the parameter gap, the capture's
    time and the graph pool's size; (c) the two timed in turns (eager,
    graphed, graphed, eager) and profiled: median steps, the busy share
@@ -223,18 +236,20 @@ Phases (any failure raises, and the script exits nonzero with no result):
    mode's and K6 leg's time against its bound, its issue roof (its entry
    loop's SASS a pair at one instruction a lane and clock) and its MUFU
    floor (``roofs``, models, kept out of the kernels line).
-7. One ``kernels`` JSON line (eleven entries of measured times, errors and
+7. One ``kernels`` JSON line (thirteen entries of measured times, errors and
    launches and the computed ``bound_ms``; ``launches`` from the
    training path for its kernels, from the anatomy path for the others;
    the training path's kernels also carry ``launches_hard_scene``,
    ``launches_cli``, ``launches_pipeline``, ``launches_sensor``,
    ``launches_nerf``, ``launches_viewer``, ``launches_multiscene``,
    ``launches_multiscene_mesh``, ``launches_sharded``,
-   ``launches_native``, ``launches_graph``,
-   ``launches_graph_trainer``, ``parallel_max_abs_err``
+   ``launches_native``, ``launches_graph`` and
+   ``launches_graph_trainer``; K1-K3 also ``parallel_max_abs_err``
    (phase 4h's errors
    against plain) and, under ``hard_scene``, their errors, times and
-   bounds at both of its k_tiles; K1-K4 also ``launches_bench``; K2 and
+   bounds at both of its k_tiles; K1-K4 and the SSIM pair also
+   ``launches_bench``; the SSIM pair also ``device_ms`` and, under
+   ``shapes``, its readings at each of phase 2b's sizes; K2 and
    K3 also ``launches_tools`` and ``tile_sweep``, their largest error
    against plain at each of phase 4l's geometries),
    then the last line
@@ -305,6 +320,22 @@ PEAK_BYTES = 3.35e12
 # fp32 operations per scanned (entry, pixel) pair, counted from the kernels
 FWD_OPS_PER_PAIR = 34
 BWD_OPS_PER_PAIR = 76
+# phase 2b: the SSIM pair at the cells' image sizes (H, W), three channels,
+# held to the card tests' limits: value rtol, gradient of its largest
+SSIM_SHAPES = ((800, 800), (720, 1280))
+SSIM_VALUE_RTOL, SSIM_GRAD_TOL = 1e-6, 1e-5
+# what the SSIM cannot do without, a pixel of one channel: fp32 operations
+# of its blurs (11 FMAs a value and pass, two passes), five maps and their
+# three products forward, three maps and the combination backward; float32
+# values moved, x and y read forward, x and y read and dL/dx written
+# backward.  This design moves 11 values: the forward writes three maps
+# and the backward reads them back.
+SSIM_FWD_OPS, SSIM_BWD_OPS = 5 * 44 + 3, 3 * 44 + 4
+SSIM_FWD_VALUES, SSIM_BWD_VALUES, SSIM_DESIGN_VALUES = 2, 3, 11
+# the kernels every training step launches once: K1 with rows, K2, K3 and
+# the SSIM pair of its loss
+TRAIN_PATH = ("slot_rows", "composite_fwd", "composite_bwd", "ssim_fwd",
+              "ssim_bwd")
 PROFILE_STEPS = 3   # training steps under torch.profiler, after the timed ones
 HOST_CALLS = 10_000  # calls a round of the host-cost table
 K4_CALLS = 200       # CUDA-event medians of K4 and torch.mul
@@ -895,6 +926,107 @@ def phase_kernels(dev) -> list:
     ]
 
 
+def ssim_inputs(dev, h: int, w: int) -> tuple:
+    """A render and its ground truth, (H, W, 3) from a seed, the second the
+    first plus noise, and the cotangent the loss gives the SSIM (minus its
+    weight); the images as the loss reads them, through their channel-major
+    views."""
+    rng = np.random.default_rng(h * w)
+    a = rng.uniform(0, 1, (h, w, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    x, y = (torch.as_tensor(v, device=dev).permute(2, 0, 1) for v in (a, b))
+    return x, y, torch.tensor(-0.2, device=dev)
+
+
+def phase_ssim_kernels(dev) -> list:
+    """Phase 2b: ``ssim_fwd`` and ``ssim_bwd`` against their plain versions
+    at each of SSIM_SHAPES: the value and dL/dx, timed per call beside the
+    plain versions and the band-matrix path they replace
+    (``ssim_cm_band``, its forward and its autograd backward), on the
+    device, and against their bounds."""
+    from touchgs_torch.ops.ssim import (ssim_bwd, ssim_bwd_plain,
+                                        ssim_cm_band, ssim_fwd,
+                                        ssim_fwd_plain)
+
+    c1, c2 = 0.01**2, 0.03**2
+    shapes = {"ssim_fwd": {}, "ssim_bwd": {}}
+    for h, w in SSIM_SHAPES:
+        x, y, grad = ssim_inputs(dev, h, w)
+        v, maps = ssim_fwd(x, y, c1, c2, True)
+        v_p, maps_p = ssim_fwd_plain(x, y, c1, c2, True)
+        dx = ssim_bwd(x, y, maps, grad)
+        dx_p = ssim_bwd_plain(x, y, maps_p, grad)
+        torch.cuda.synchronize()
+        v_err = abs(float(v) - float(v_p))
+        g_err = float((dx - dx_p).abs().max())
+        g_max = float(dx_p.abs().max())
+        name = f"{w}x{h}x3"
+        print(f"SSIM {name}: value {float(v):.7f}, error {v_err:.3e} "
+              f"({v_err / abs(float(v_p)):.3e} relative, limit "
+              f"{SSIM_VALUE_RTOL:g}); dL/dx error {g_err:.3e} "
+              f"({g_err / g_max:.3e} of its largest, limit "
+              f"{SSIM_GRAD_TOL:g}); dL/dx strides {dx.stride()}")
+        check(v_err <= SSIM_VALUE_RTOL * abs(float(v_p)),
+              f"ssim_fwd {name}: value outside tolerance")
+        check(g_err <= SSIM_GRAD_TOL * g_max,
+              f"ssim_bwd {name}: dL/dx outside tolerance")
+        check(dx.stride() == x.stride(), f"ssim_bwd {name}: dL/dx strides")
+
+        xr = x.detach().requires_grad_()
+        vb = ssim_cm_band(xr, y)
+
+        def fwd():
+            return ssim_fwd(x, y, c1, c2, True)
+
+        def bwd():
+            return ssim_bwd(x, y, maps, grad)
+
+        runs = {
+            "ssim_fwd": (fwd, lambda: ssim_fwd_plain(x, y, c1, c2, True),
+                         lambda: ssim_cm_band(xr, y), v_err,
+                         SSIM_FWD_VALUES, SSIM_FWD_OPS),
+            "ssim_bwd": (bwd, lambda: ssim_bwd_plain(x, y, maps_p, grad),
+                         lambda: torch.autograd.grad(vb, xr, grad,
+                                                     retain_graph=True),
+                         g_err, SSIM_BWD_VALUES, SSIM_BWD_OPS),
+        }
+        n = x.numel()
+        for kernel, (fn, plain_fn, lib_fn, err, values, ops) in runs.items():
+            b = bound(4 * values * n, fp32_ops=ops * n)
+            print(f"  {kernel} {name} on the device:")
+            shapes[kernel][name] = dict(
+                max_abs_err=err, ms=median_ms(fn, 50),
+                plain_ms=median_ms(plain_fn, 10),
+                library_ms=median_ms(lib_fn, 10), device_ms=device_ms(fn),
+                bound_ms=b[0], bound_by=b[1])
+        design = bound(4 * SSIM_DESIGN_VALUES * n)[0]
+        pair = sum(shapes[k][name]["device_ms"] for k in shapes)
+        least = sum(shapes[k][name]["bound_ms"] for k in shapes)
+        print(f"SSIM {name}: the pair {pair:.4f} ms on the device, "
+              f"{100 * least / pair:.1f}% of its bound {least:.5f} ms; this "
+              f"design's {SSIM_DESIGN_VALUES} values a pixel and channel "
+              f"{design:.5f} ms ({100 * design / pair:.1f}%)")
+        for k in shapes:
+            r = shapes[k][name]
+            print(f"  {k} {name}: {r['ms']:.4f} ms a call (plain "
+                  f"{r['plain_ms']:.3f}, band path {r['library_ms']:.3f}), "
+                  f"device {r['device_ms']:.5f}, bound {r['bound_ms']:.5f} "
+                  f"({r['bound_by']})")
+        del xr, vb
+    first = f"{SSIM_SHAPES[0][1]}x{SSIM_SHAPES[0][0]}x3"
+    return [
+        dict(name=k, route="cuda", source="touchgs_torch/csrc/ssim.cu",
+             replaces="none: touchgs_tpu/ops/ssim.py::_blur_cm's band-matrix "
+             "products", **{f: shapes[k][first][f] for f in shapes[k][first]},
+             max_abs_err_all=max(r["max_abs_err"]
+                                 for r in shapes[k].values()),
+             shapes=shapes[k],
+             library_note="ssim_cm_band, the band-matrix products with "
+             "autograd: " + ("its forward" if k == "ssim_fwd" else
+                             "its autograd backward"))
+        for k in shapes]
+
+
 def live_pairs(done, tids, attrs_tiled, geom) -> tuple:
     """Over the entries K2 scanned (``done`` chunks a tile): the share of
     (entry, pixel) pairs with α > 0, and the shares of (entry, 32-pixel
@@ -1176,8 +1308,10 @@ def phase_scan(dev, card: str, kernel_step_ms: float) -> None:
           f"{peak:.2f} GiB; the tile kernels' median step {kernel_step_ms:.3f}"
           f" ms in this run; on {card}")
     check(len(step_ms) == SCAN_TIMED, f"{len(step_ms)} timed scan steps")
-    check(all(v == 0 for v in counts.values()),
-          f"the scan path launched tile kernels: {counts}")
+    # no tile kernel; the loss's SSIM pair runs on every path, once a step
+    want = {k: SCAN_WARMUP + SCAN_TIMED if k in ("ssim_fwd", "ssim_bwd")
+            else 0 for k in counts}
+    check(counts == want, f"the scan path's launches {counts}, want {want}")
     check(all(np.isfinite(losses)), "scan path: non-finite loss")
     check(all("lossy_tiles" not in m for m in trainer.history),
           "the scan path reported lossy_tiles")
@@ -1208,8 +1342,7 @@ def phase_demo(card: str) -> None:
           f"launches {counts}")
     check(ev["refine"] >= 2 and ev["reset_opacity"] >= 1 and ev["grow"] >= 1,
           f"demo schedule: {ev}, want refine >= 2, reset >= 1, grow >= 1")
-    check(all(counts[k] >= 1 for k in ("slot_rows", "composite_fwd",
-                                       "composite_bwd")),
+    check(all(counts[k] >= 1 for k in TRAIN_PATH),
           f"demo launches {counts}")
     check(all(np.isfinite(v) for v in s["eval"].values())
           and np.isfinite(s["eval_depth_mae_m"]),
@@ -1444,8 +1577,7 @@ def phase_touch(card: str) -> dict:
     print(f"touch: stage times {json.dumps(s['stages'])}")
     for row in (a, b):
         print(f"touch: {json.dumps(row)}")
-    check(all(counts[k] >= 1 for k in ("slot_rows", "composite_fwd",
-                                       "composite_bwd")),
+    check(all(counts[k] >= 1 for k in TRAIN_PATH),
           f"hard scene launches {counts}")
     check(s["gt_lossy_tiles"] == [0] * len(s["gt_lossy_tiles"])
           and s["gt_lossy_tiles"], "hard scene GT renders lossy or not "
@@ -1536,8 +1668,7 @@ def phase_cli(card: str) -> tuple:
               f"(scene load and init included), {times['train_it_s']:.2f}"
               f" it/s; loss {hist[0]['loss']:.5f} -> {hist[-1]['loss']:.5f}"
               f", alive {int(hist[-1]['num_alive'])}; launches {counts}")
-        check(all(counts[k] >= CLI_STEPS for k in (
-            "slot_rows", "composite_fwd", "composite_bwd")),
+        check(all(counts[k] >= CLI_STEPS for k in TRAIN_PATH),
               f"cli train launches {counts}, want >= {CLI_STEPS} each")
         check((run_a / "config.json").exists() and (
             run_a / "checkpoints" / f"{CLI_STEPS}.pt").exists(),
@@ -1617,8 +1748,7 @@ def phase_cli(card: str) -> tuple:
               and bool(torch.isfinite(pd).all())
               and float(pd.abs().max()) > 0,
               "cli SO3xR3: non-finite loss or pose deltas, or none moved")
-        check(all(pose_counts[k] >= CLI_POSE_STEPS for k in (
-            "slot_rows", "composite_fwd", "composite_bwd")),
+        check(all(pose_counts[k] >= CLI_POSE_STEPS for k in TRAIN_PATH),
               f"cli SO3xR3 launches {pose_counts}")
         del posed
     print(f"cli: times {json.dumps(times)} on {card}")
@@ -1834,8 +1964,7 @@ def phase_pipeline(tmp, zoe_npz, card: str, dev) -> dict:
           "pipeline: fusion, seeds or depth paths missing")
     check(all(np.isfinite(results[k]) for k in ("psnr", "ssim", "lpips")),
           f"pipeline eval: {results}")
-    check(all(counts[k] >= PIPE_STEPS for k in (
-        "slot_rows", "composite_fwd", "composite_bwd")),
+    check(all(counts[k] >= PIPE_STEPS for k in TRAIN_PATH),
           f"pipeline launches {counts}, want >= {PIPE_STEPS} each")
     return counts
 
@@ -3037,7 +3166,8 @@ def phase_viewer(card: str, trainer) -> tuple:
         check(n_during >= 1, "no frame was served while training")
         want = {"slot_lists": 0, "slot_rows": PAR_STEPS + n_during,
                 "composite_fwd": PAR_STEPS + n_during,
-                "composite_bwd": PAR_STEPS}
+                "composite_bwd": PAR_STEPS, "ssim_fwd": PAR_STEPS,
+                "ssim_bwd": PAR_STEPS}
         check(during == want, f"launches while training with the viewer "
               f"{during}, want {want}")
         with urllib.request.urlopen(v.url + "state", timeout=60) as r:
@@ -3063,7 +3193,8 @@ def phase_viewer(card: str, trainer) -> tuple:
         counts = dict(rc.launches)
         n_frames = 3 + VIEW_FRAMES
         want = {"slot_lists": 0, "slot_rows": n_frames,
-                "composite_fwd": n_frames, "composite_bwd": 0}
+                "composite_fwd": n_frames, "composite_bwd": 0,
+                "ssim_fwd": 0, "ssim_bwd": 0}
         check(counts == want, f"viewer launches after training {counts}, "
               f"want {want}")
         c2w = orbit_c2w(0.4, 0.35, 3.0)
@@ -3325,9 +3456,11 @@ def phase_multiscene(card: str, dev) -> tuple:
         name = (("graphed " if graphed else "")
                 + ("mesh" if on_mesh else "multi-scene"))
         want = {"slot_lists": 0, "slot_rows": MS_STEPS,
-                "composite_fwd": MS_STEPS, "composite_bwd": MS_STEPS}
+                "composite_fwd": MS_STEPS, "composite_bwd": MS_STEPS,
+                "ssim_fwd": MS_STEPS * S, "ssim_bwd": MS_STEPS * S}
         check(counts == want, f"{name} launches {counts}, want {want} "
-              f"(one of each kernel a step for all {S} scenes)")
+              f"(one of each K1-K3 a step for all {S} scenes, one SSIM a "
+              f"scene)")
         check(ev["refine"] >= 1 and ev["reset_opacity"] >= 1,
               f"{name} schedule ran {ev}")
         losses = met["loss_per_scene"].tolist()
@@ -3469,7 +3602,8 @@ def phase_sharded(card: str, dev, batch) -> tuple:
     torch.cuda.synchronize()
     counts = dict(rc.launches)
     want = {"slot_lists": 0, "slot_rows": SHARDS + 1,
-            "composite_fwd": SHARDS + 1, "composite_bwd": SHARDS + 1}
+            "composite_fwd": SHARDS + 1, "composite_bwd": SHARDS + 1,
+            "ssim_fwd": 2, "ssim_bwd": 2}
     check(counts == want, f"sharded launches {counts}, want {want}")
     same_step(f"tile_shards={SHARDS}", m4["loss"], rm["loss"], st4.params,
               ref.params, cfg.optim)
@@ -3543,7 +3677,8 @@ def phase_sharded(card: str, dev, batch) -> tuple:
         del out
     want = {"slot_lists": 0, "slot_rows": SHARD_HOLD * (SHARDS + 1),
             "composite_fwd": SHARD_HOLD * (SHARDS + 1),
-            "composite_bwd": SHARD_HOLD * (SHARDS + 1)}
+            "composite_bwd": SHARD_HOLD * (SHARDS + 1),
+            "ssim_fwd": SHARD_HOLD * 2, "ssim_bwd": SHARD_HOLD * 2}
     check(graph_counts == want, f"graphed sharded launches {graph_counts}, "
           f"want {want}")
 
@@ -3838,11 +3973,10 @@ def phase_bench(card: str, train_step_ms: float | None = None,
     check(last.startswith("launches: "), f"bench's last line {last!r}")
     counts = json.loads(last[len("launches: "):])["steps"]
     n_steps = bench_torch.WARMUP_STEPS + bench_torch.TIMED_STEPS
-    path = ("slot_rows", "composite_fwd", "composite_bwd")
     check(counts["compile_smoke"] == 1
-          and all(counts[k] >= n_steps for k in path),
+          and all(counts[k] >= n_steps for k in TRAIN_PATH),
           f"bench launches {counts}: want K4 once and K1 with rows, K2, K3 "
-          f"at least {n_steps} times each")
+          f"and the SSIM pair at least {n_steps} times each")
     m = re.search(r"lossy-truncated tiles \(capped & unsaturated\): "
                   r"(\d+)/(\d+)", r.stderr)
     check(m is not None and int(m.group(1)) == 0,
@@ -4349,7 +4483,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     k4, loops = phase_build()
-    kernels = phase_kernels(dev)
+    kernels = phase_kernels(dev) + phase_ssim_kernels(dev)
     phase_reference(dev)
     counts, trainer, step_ms = phase_train(card_name)
     phase_profile(lambda: trainer.run(trainer.state.step + PROFILE_STEPS))
@@ -4405,6 +4539,7 @@ def main() -> int:
             k["launches_native"] = native_counts[k["name"]]
             k["launches_graph"] = graph_counts[k["name"]]
             k["launches_graph_trainer"] = graph_trainer_counts[k["name"]]
+        if k["name"] in touch_kernels:  # K1-K3
             k["hard_scene"] = touch_kernels[k["name"]]
             # the largest error of K1-K3 against plain on each path's inputs
             k["parallel_max_abs_err"] = parallel["errors"]

@@ -667,6 +667,180 @@ def test_compile_smoke_on_card(cuda_device):
     assert cuda_build.launches["compile_smoke"] == before + 2
 
 
+# ---- SSIM (csrc/ssim.cu) ----------------------------------------------------
+
+# the kernels against the plain version on the card (band-matrix products,
+# TF32 off): a stencil and a matrix product sum in different orders.
+# Measured on an H100 at the four shapes below: value 6.3e-8 relative,
+# gradient 1.44e-6 of its largest
+SSIM_VALUE_RTOL = 1e-6
+SSIM_GRAD_ATOL = 1e-5     # of the largest |dL/dx|
+
+
+def ssim_images(shape, dev, seed=0):
+    """Two (H, W, C) images from a seed, the second the first plus noise,
+    as the training loss has them: a render and its ground truth."""
+    C, H, W = shape
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0, 1, (H, W, C)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    return (torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev))
+
+
+def ssim_kernel_grad(a, b):
+    """The value and dL/da of ``ssim_cm`` on the channel-major views of
+    (H, W, C) images, as ``compute_losses`` calls it: dL/da is (H, W, C)."""
+    from touchgs_torch.ops.ssim import ssim_cm
+
+    leaf = a.detach().clone().requires_grad_()
+    v = ssim_cm(leaf.permute(2, 0, 1), b.permute(2, 0, 1))
+    (g,) = torch.autograd.grad(v, leaf)
+    return v.detach(), g
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 800, 800), (3, 720, 1280),
+                                   (3, 33, 97), (1, 7, 9)])
+def test_ssim_kernels_match_plain(cuda_device, shape):
+    """The forward and backward kernels against ``ssim_fwd_plain`` and
+    ``ssim_bwd_plain`` on the card at the cells' shapes (800x800 and
+    1280x720, whose last tile row is ragged), a non-square odd size and
+    an image under the 11x11 window: value rtol SSIM_VALUE_RTOL, gradient
+    into ``img0`` within SSIM_GRAD_ATOL of its largest; one launch of
+    each kernel."""
+    from touchgs_torch.ops.ssim import ssim_bwd_plain, ssim_fwd_plain
+
+    a, b = ssim_images(shape, cuda_device)
+    before = dict(rc.launches)
+    v, g = ssim_kernel_grad(a, b)
+    torch.cuda.synchronize()
+    assert _counts_since(before, rc.launches) == {
+        **dict.fromkeys(before, 0), "ssim_fwd": 1, "ssim_bwd": 1}
+    pa, pb = a.permute(2, 0, 1), b.permute(2, 0, 1)
+    pv, maps = ssim_fwd_plain(pa, pb, 0.01**2, 0.03**2, True)
+    pg = ssim_bwd_plain(pa, pb, maps, torch.ones((), device=cuda_device))
+    torch.testing.assert_close(v, pv, rtol=SSIM_VALUE_RTOL, atol=0)
+    torch.testing.assert_close(
+        g.permute(2, 0, 1), pg, rtol=0,
+        atol=SSIM_GRAD_ATOL * float(pg.abs().max()))
+    assert g.stride() == a.stride()
+
+
+@pytest.mark.cuda
+def test_ssim_kernels_identity_and_repeat(cuda_device):
+    """An image against itself reads 1 within 1e-6; two runs of the
+    kernels give the same value and gradient bit for bit."""
+    from touchgs_torch.ops.ssim import ssim
+
+    a, b = ssim_images((3, 800, 800), cuda_device)
+    assert abs(float(ssim(a, a)) - 1.0) <= 1e-6
+    v0, g0 = ssim_kernel_grad(a, b)
+    v1, g1 = ssim_kernel_grad(a, b)
+    assert torch.equal(v0, v1) and torch.equal(g0, g1)
+
+
+@pytest.mark.cuda
+def test_ssim_graph_replay_equals_eager(cuda_device):
+    """The forward and backward captured in a CUDA graph: a replay equals
+    the eager call bit for bit, before and after new data is copied into
+    the captured input."""
+    from touchgs_torch.ops.ssim import ssim_cm
+
+    a, b = ssim_images((3, 200, 300), cuda_device)
+    leaf = a.clone().requires_grad_()
+
+    def step():
+        v = ssim_cm(leaf.permute(2, 0, 1), b.permute(2, 0, 1))
+        return (v.detach(), *torch.autograd.grad(v, leaf))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = step()
+    for new in (a, a.flip(0)):
+        with torch.no_grad():
+            leaf.copy_(new)
+        graph.replay()
+        eager = step()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(captured, eager))
+
+
+@pytest.mark.cuda
+def test_ssim_no_sync(cuda_device):
+    """A forward and backward of the kernels make no synchronisation:
+    ``set_sync_debug_mode("error")`` raises on any."""
+    a, b = ssim_images((3, 64, 96), cuda_device)
+    leaf = a.clone().requires_grad_()
+    from touchgs_torch.ops.ssim import ssim_cm
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        v = ssim_cm(leaf.permute(2, 0, 1), b.permute(2, 0, 1))
+        torch.autograd.grad(v, leaf)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.cuda
+def test_ssim_launches_and_img1_gradient(cuda_device):
+    """A forward under ``no_grad`` launches the forward kernel alone; the
+    gradient into ``img1`` alone launches the forward with the images'
+    roles swapped and the backward, and equals the plain version's."""
+    from touchgs_torch.ops.ssim import (ssim, ssim_bwd_plain, ssim_cm,
+                                        ssim_fwd_plain)
+
+    a, b = ssim_images((3, 33, 97), cuda_device)
+    before = dict(rc.launches)
+    with torch.no_grad():
+        ssim(a, b)
+    leaf = b.clone().requires_grad_()
+    v = ssim_cm(a.permute(2, 0, 1), leaf.permute(2, 0, 1))
+    (g,) = torch.autograd.grad(v, leaf)
+    torch.cuda.synchronize()
+    assert _counts_since(before, rc.launches) == {
+        **dict.fromkeys(before, 0), "ssim_fwd": 3, "ssim_bwd": 1}
+    pa, pb = a.permute(2, 0, 1), b.permute(2, 0, 1)
+    _, maps = ssim_fwd_plain(pb, pa, 0.01**2, 0.03**2, True)
+    pg = ssim_bwd_plain(pb, pa, maps, torch.ones((), device=cuda_device))
+    torch.testing.assert_close(
+        g.permute(2, 0, 1), pg, rtol=0,
+        atol=SSIM_GRAD_ATOL * float(pg.abs().max()))
+
+
+@pytest.mark.cuda
+def test_ssim_wrappers_check_tensors_on_card(cuda_device):
+    """The kernels' wrappers raise before they launch on a tensor of the
+    CPU among the card's, a float64 image, images of two shapes, a 2-D
+    image and maps of the wrong shape."""
+    from touchgs_torch.ops.ssim import ssim_bwd, ssim_fwd
+
+    a, b = (x.permute(2, 0, 1) for x in ssim_images((3, 16, 24),
+                                                     cuda_device))
+    maps = torch.zeros((3, 3, 16, 24), device=cuda_device)
+    grad = torch.ones((), device=cuda_device)
+    c = (0.01**2, 0.03**2, True)
+    bad = {
+        "unsupported devices": lambda: ssim_fwd(a, b.cpu(), *c),
+        r"img0: .* got torch\.float64": lambda: ssim_fwd(
+            a.double(), b.double(), *c),
+        r"img1: want .* \(3, 16, 24\)": lambda: ssim_fwd(a, b[:, :8], *c),
+        r"img0: .* shape \(16, 24\)": lambda: ssim_fwd(a[0], b[0], *c),
+        r"maps: want .* \(3, 3, 16, 24\)": lambda: ssim_bwd(a, b, maps[:2],
+                                                             grad),
+    }
+    before = dict(rc.launches)
+    for match, call in bad.items():
+        with pytest.raises(ValueError, match=match):
+            call()
+    assert rc.launches == before
+
+
 def _case_shape(case):
     """(th, tw) of a tile case: ``saturating_<th>x<tw>``, else 32x32."""
     if case.startswith("saturating_"):
@@ -1074,7 +1248,8 @@ def test_viewer_frame_on_card(cuda_device):
                 for m in ("rgb", "depth", "acc")}
         torch.cuda.synchronize()
         assert rc.launches == {"slot_lists": 0, "slot_rows": 5,
-                               "composite_fwd": 5, "composite_bwd": 2}
+                               "composite_fwd": 5, "composite_bwd": 2,
+                               "ssim_fwd": 2, "ssim_bwd": 2}
     c2w = orbit_c2w(0.3, 0.2, 2.5)
     f = np.float32(0.8 * 96)
     cam = Camera(*(torch.tensor(np.float32(x), device=cuda_device)
@@ -1117,7 +1292,8 @@ def test_two_scene_step_on_card(cuda_device):
         *(torch.stack([b[i] for b in batches]) for i in (1, 2, 3)), 3)
     torch.cuda.synchronize()
     assert rc.launches == {"slot_lists": 0, "slot_rows": 1,
-                           "composite_fwd": 1, "composite_bwd": 1}
+                           "composite_fwd": 1, "composite_bwd": 1,
+                           "ssim_fwd": 2, "ssim_bwd": 2}
     step = make_train_step(cfg, opt)
     for s in range(2):
         p = copy.deepcopy(params[s])
@@ -1154,7 +1330,8 @@ def test_tile_shards_on_card(cuda_device):
         torch.cuda.synchronize()
         n = max(shards, 1)
         assert rc.launches == {"slot_lists": 0, "slot_rows": n,
-                               "composite_fwd": n, "composite_bwd": n}
+                               "composite_fwd": n, "composite_bwd": n,
+                               "ssim_fwd": 0, "ssim_bwd": 0}
         outs[shards] = (out, grads)
     (o0, g0), (o4, g4) = outs[0], outs[4]
     for k in ("rgb", "depth", "acc"):
@@ -1239,7 +1416,8 @@ def test_packed_grid_slices_on_card(cuda_device, shards):
     torch.cuda.synchronize()
     assert rc.launches == {"slot_lists": 0, "slot_rows": shards + 1,
                            "composite_fwd": shards + 1,
-                           "composite_bwd": shards + 1}
+                           "composite_bwd": shards + 1, "ssim_fwd": 0,
+                           "ssim_bwd": 0}
     assert float(whole[2][:, plain.ROW_DONE].max()) > 0
     assert_slices_equal_whole(sliced, whole)
 
@@ -1337,7 +1515,8 @@ def test_multiscene_mesh_world_of_one(cuda_device):
                 placed(state0, m), *batch)
             torch.cuda.synchronize()
             assert rc.launches == {"slot_lists": 0, "slot_rows": 1,
-                                   "composite_fwd": 1, "composite_bwd": 1}
+                                   "composite_fwd": 1, "composite_bwd": 1,
+                                   "ssim_fwd": 2, "ssim_bwd": 2}
             stepped[name] = (whole(state, m), metrics)
         for name, m in meshes.items():
             state = ms.make_multiscene_refine_step(cfg, m)(
@@ -1454,13 +1633,13 @@ def test_graphed_step_matches_eager(cuda_device):
         counts[name] = dict(rc.launches)
         assert state.step == 5
     want = {"slot_lists": 0, "slot_rows": 5, "composite_fwd": 5,
-            "composite_bwd": 5}
+            "composite_bwd": 5, "ssim_fwd": 5, "ssim_bwd": 5}
     assert counts == {"eager": want, "graph": want}, counts
     assert trainer.events["capture"] == 1 and len(step.graphs) == 1
     w = graphs.WARMUP_ITERS
     assert _counts_since(warm0, rc.launches_warmup) == {
         "slot_lists": 0, "slot_rows": w, "composite_fwd": w,
-        "composite_bwd": w}
+        "composite_bwd": w, "ssim_fwd": w, "ssim_bwd": w}
     assert np.isfinite(logs["graph"]).all()
     np.testing.assert_allclose(logs["graph"], logs["eager"], rtol=1e-3)
 
@@ -1638,13 +1817,17 @@ def _graph_against_eager(step, state, batches: list, between=None) -> dict:
     return out
 
 
-def _check_graph_against_eager(out: dict, n_launches: int) -> None:
+def _check_graph_against_eager(out: dict, n_launches: int,
+                               n_losses: int) -> None:
+    """``n_launches`` of each of K1 with rows, K2 and K3 and ``n_losses``
+    of each SSIM kernel (one a scene a step) on each side."""
     (el, es, ec), (gl, gs, gc) = out["eager"], out["graph"]
     assert np.isfinite(gl).all()
     np.testing.assert_allclose(gl, el, rtol=1e-3)
     assert _same_tensors(graphs.state_tensors(gs), graphs.state_tensors(es))
     want = {"slot_lists": 0, "slot_rows": n_launches,
-            "composite_fwd": n_launches, "composite_bwd": n_launches}
+            "composite_fwd": n_launches, "composite_bwd": n_launches,
+            "ssim_fwd": n_losses, "ssim_bwd": n_losses}
     assert ec == want and gc == want, (ec, gc)
 
 
@@ -1668,7 +1851,7 @@ def test_graphed_pose_step_one_capture_for_three_views(cuda_device):
     batches = [(*trainer._batch(v), 3, trainer.view_index(v))
                for v in (0, 1, 2, 0, 1)]
     out = _graph_against_eager(step, trainer.state, batches)
-    _check_graph_against_eager(out, 5)
+    _check_graph_against_eager(out, 5, 5)
     assert step.events["capture"] == 1 and len(step.graphs) == 1
     assert float(out["graph"][1].pose_deltas.abs().max()) > 0
 
@@ -1685,7 +1868,7 @@ def test_graphed_tile_shards_step_matches_eager(cuda_device):
     assert isinstance(step, GraphedStep)
     batches = [(*trainer._batch(i % 2), 3) for i in range(5)]
     _check_graph_against_eager(
-        _graph_against_eager(step, trainer.state, batches), 4 * 5)
+        _graph_against_eager(step, trainer.state, batches), 4 * 5, 5)
     assert events["capture"] == 1
 
 
@@ -1733,7 +1916,7 @@ def test_graphed_multiscene_step_refine_and_reset(cuda_device):
         return st
 
     out = _graph_against_eager(step, state, batches, between)
-    _check_graph_against_eager(out, 5)
+    _check_graph_against_eager(out, 5, 2 * 5)
     assert step.events["capture"] == 1 and len(step.graphs) == 1
 
 
@@ -1764,12 +1947,12 @@ def test_graphed_mesh_and_sharded_steps_in_nccl_world_of_one(cuda_device):
         step = make_sharded_train_step(cfg, mesh, trainer.optimizer)
         batches = [(*trainer._batch(i % 2), 3) for i in range(5)]
         _check_graph_against_eager(_graph_against_eager(
-            step, shard_state(trainer.state, mesh), batches), 5)
+            step, shard_state(trainer.state, mesh), batches), 5, 5)
         assert step.events["capture"] == 1
         opt, state, batches = _two_scenes(cfg)
         step = ms.make_multiscene_train_step(cfg, opt, mesh)
         _check_graph_against_eager(_graph_against_eager(
-            step, ms.shard_multiscene_state(state, mesh), batches), 5)
+            step, ms.shard_multiscene_state(state, mesh), batches), 5, 2 * 5)
         assert step.events["capture"] == 1
     finally:
         torch.distributed.destroy_process_group()

@@ -132,11 +132,9 @@ def eval_metrics(
     is_real_world: bool = True,
 ) -> dict:
     """Per-view metric dict with the fork's exact key names."""
-    with fp32():  # SSIM's blur is two matmuls
-        s = float(ssim(rendered_rgb, gt_rgb))
     out = {
         "psnr": float(psnr(rendered_rgb, gt_rgb)),
-        "ssim": s,
+        "ssim": float(ssim(rendered_rgb, gt_rgb)),
         "lpips": float(lpips_distance(rendered_rgb, gt_rgb)),
     }
     if supervision_depth is not None:

@@ -1,7 +1,8 @@
 """Build and load the CUDA kernels under ``touchgs_torch/csrc/``.
 
 Each ``<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own shared
-library with a plain C launcher (``<name>_launch``), loaded with ``ctypes``.
+library with a plain C launcher (``<name>_launch``), loaded with ``ctypes``;
+``ssim.cu`` holds two (``ssim_fwd_launch``, ``ssim_bwd_launch``).
 Builds happen at first use, one ``nvcc`` process per source, all started
 together, into ``csrc/build/<hash of the sources and flags>/``, so a changed
 source rebuilds and an unchanged one is reused.  Nothing is built on import.
@@ -27,7 +28,9 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC / "build"
 KERNELS = ("slot_lists", "composite_fwd", "composite_bwd", "compile_smoke",
-           "anatomy_variants", "bf16_probe")
+           "anatomy_variants", "bf16_probe", "ssim")
+# launchers that live in another source's library than their own name's
+LIBRARY = {"ssim_fwd": "ssim", "ssim_bwd": "ssim"}
 # No fast-math flag: exp2f and the divides stay IEEE-accurate.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -49,6 +52,12 @@ SIGNATURES = {
     "anatomy_variants": [_P] * 5 + [_I] * 7 + [_F, _F, _P],
     # attrs, out; bf16 (0/1), n_tiles; stream
     "bf16_probe": [_P, _P, _I, _I, _P],
+    # x, y; C, H, W; x's and y's strides; taps (host); c1, c2; maps (or
+    # null), scratch, its words, out; stream
+    "ssim_fwd": [_P, _P] + [_I] * 9 + [_P, _F, _F, _P, _P, _I, _P, _P],
+    # x, y; C, H, W; x's and y's strides; taps (host), maps, grad, dx;
+    # dx's strides; stream
+    "ssim_bwd": [_P, _P] + [_I] * 9 + [_P] * 4 + [_I] * 3 + [_P],
 }
 # launches of compile_smoke (the other wrappers count their own)
 launches = {"compile_smoke": 0}
@@ -186,7 +195,7 @@ def launcher(name: str, src: Path = CSRC):
     ``src`` other than the package's sources builds and loads those."""
     fn = _launchers.get((name, src))
     if fn is None:
-        lib = ctypes.CDLL(str(library(name, src)))
+        lib = ctypes.CDLL(str(library(LIBRARY.get(name, name), src)))
         fn = getattr(lib, f"{name}_launch")
         fn.argtypes = SIGNATURES[name]
         fn.restype = ctypes.c_int

@@ -65,9 +65,10 @@ MAX_TILE_PIXELS = 16384
 
 # kernel launches by wrapper; only a launch of the CUDA kernel counts.  A
 # live viewer renders on another thread than training, so the counts are
-# incremented under a lock.
+# incremented under a lock.  The SSIM kernels of ``ops.ssim``, which run in
+# the same steps and graphs, count here too.
 launches = {"slot_lists": 0, "slot_rows": 0, "composite_fwd": 0,
-            "composite_bwd": 0}
+            "composite_bwd": 0, "ssim_fwd": 0, "ssim_bwd": 0}
 # the launches of the graphed step's warm-ups, on a clone of the state
 # (``train/graphs.py``), counted apart from ``launches``
 launches_warmup = dict.fromkeys(launches, 0)

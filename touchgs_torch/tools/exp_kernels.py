@@ -15,7 +15,13 @@ k_tile 512.  Rows, as the JAX tool's:
 - ``scatter real``: the gather's VJP, the duplicate-index scatter-add of
   ``_SlotRows.backward`` (``rasterize_cuda.scatter_rows``);
 - ``ssim fwd`` and ``ssim fwd+grad`` on two 800x800x3 images from
-  ``default_rng(0)``.
+  ``default_rng(0)``: the kernels of ``csrc/ssim.cu``; beside them
+  ``ssim plain fwd+grad`` (``ssim_fwd_plain`` and ``ssim_bwd_plain`` on the
+  card) and ``ssim band fwd+grad`` (``ssim_cm_band``: autograd through the
+  band-matrix products, the step's SSIM before the kernels, the library
+  yardstick), and
+  each again at 1280x720; ``ssim device`` rows give the two kernels' own
+  device time a call under ``torch.profiler``.
 
     python -m touchgs_torch.tools.exp_kernels [--iters N]
 
@@ -26,6 +32,7 @@ that the tests drive them on the CPU at a small size.
 """
 from __future__ import annotations
 
+import re
 import sys
 
 import numpy as np
@@ -33,12 +40,16 @@ import torch
 
 from touchgs_torch.ops import rasterize_cuda as rc
 from touchgs_torch.ops import rasterize_plain as plain
-from touchgs_torch.ops.ssim import ssim
+from touchgs_torch.ops.ssim import (ssim, ssim_bwd_plain, ssim_cm_band,
+                                    ssim_fwd_plain)
 from touchgs_torch.tools.exp_common import bench_tiles, iters_arg, needs_card
 from touchgs_torch.utils.profiling import card, timed_row
 
 ITERS = 20
 SSIM_SIZE = 800
+# (H, W) of the benchmark's two cells
+SSIM_SHAPES = ((800, 800), (720, 1280))
+C1, C2 = 0.01**2, 0.03**2
 
 
 def kernel_rows(x: dict) -> tuple:
@@ -61,9 +72,11 @@ def kernel_rows(x: dict) -> tuple:
     }, fwd
 
 
-def ssim_inputs(device="cuda", size: int = SSIM_SIZE) -> tuple:
+def ssim_inputs(device="cuda", size: int = SSIM_SIZE,
+                width: int | None = None) -> tuple:
+    """Two (size, width or size, 3) images from ``default_rng(0)``."""
     rng = np.random.default_rng(0)
-    return tuple(torch.as_tensor(rng.uniform(0, 1, (size, size, 3)),
+    return tuple(torch.as_tensor(rng.uniform(0, 1, (size, width or size, 3)),
                                  dtype=torch.float32, device=device)
                  for _ in range(2))
 
@@ -71,6 +84,36 @@ def ssim_inputs(device="cuda", size: int = SSIM_SIZE) -> tuple:
 def ssim_fwd_grad(a, b):
     a = a.detach().requires_grad_(True)
     return torch.autograd.grad(ssim(a, b), a)[0]
+
+
+def ssim_plain_fwd_grad(a, b):
+    """dSSIM/da through the plain versions (band-matrix blur, analytic
+    backward) on ``a``'s device."""
+    pa, pb = a.permute(2, 0, 1), b.permute(2, 0, 1)
+    _, maps = ssim_fwd_plain(pa, pb, C1, C2, True)
+    return ssim_bwd_plain(pa, pb, maps, torch.ones((), device=a.device))
+
+
+def ssim_band_fwd_grad(a, b):
+    a = a.detach().requires_grad_(True)
+    v = ssim_cm_band(a.permute(2, 0, 1), b.permute(2, 0, 1))
+    return torch.autograd.grad(v, a)[0]
+
+
+def ssim_device_ms(a, b, iters: int) -> dict:
+    """{kernel: device ms a call} of ``ssim_fwd_grad`` over ``iters``
+    calls under ``torch.profiler`` (the kernels alone, no host work)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ssim_fwd_grad(a, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            ssim_fwd_grad(a, b)
+        torch.cuda.synchronize()
+    return {m.group(0): e.device_time_total / 1e3 / iters
+            for e in prof.key_averages()
+            if (m := re.search(r"ssim_\w+?_kernel", e.key))}
 
 
 def run(iters: int = ITERS) -> dict:
@@ -83,10 +126,17 @@ def run(iters: int = ITERS) -> dict:
     out: dict = {}
     for name, (fn, args) in rows.items():
         timed_row(out, name, fn, *args, iters=iters, width=16)
-    a, b = ssim_inputs()
-    timed_row(out, "ssim fwd", ssim, a, b, iters=iters, width=16)
-    timed_row(out, "ssim fwd+grad", ssim_fwd_grad, a, b, iters=iters,
-              width=16)
+    for h, w in SSIM_SHAPES:
+        a, b = ssim_inputs(size=h, width=w)
+        at = "" if (h, w) == (SSIM_SIZE, SSIM_SIZE) else f" {w}x{h}"
+        for name, fn in (("ssim fwd", ssim), ("ssim fwd+grad", ssim_fwd_grad),
+                         ("ssim plain fwd+grad", ssim_plain_fwd_grad),
+                         ("ssim band fwd+grad", ssim_band_fwd_grad)):
+            timed_row(out, name + at, fn, a, b, iters=iters, width=32)
+        for kernel, ms in ssim_device_ms(a, b, iters).items():
+            out[f"ssim device {kernel}{at}"] = ms
+            print(f"{'ssim device ' + kernel + at:<32} {ms:9.4f} ms",
+                  flush=True)
     return out
 
 
