@@ -1695,6 +1695,50 @@ def test_graphed_stages_add_up_to_the_replay(cuda_device):
 
 
 @pytest.mark.cuda
+def test_graphed_nested_stage_and_tile_lists(cuda_device):
+    """The replay's ``raster_bwd`` event (set by a gradient hook on the
+    autograd device thread during the capture) lies inside the loss and
+    backward stages; the graph's tile lists are its replays' counts: the
+    entries the account takes at a log point equal the eager binning's of
+    the same view and state, and a ``Trainer.run`` log point reads no more
+    than the schedule's reads."""
+    import copy
+
+    from touchgs_torch.models.splatfacto import shade
+
+    trainer = _graph_trainer()
+    step = trainer.train_step
+    batch = trainer._batch(0)
+    before = copy.deepcopy(trainer.state)
+    state, _ = step(trainer.state, *batch, 0)    # capture and one replay
+    torch.cuda.synchronize()
+    (g,) = step.graphs.values()
+    ms, nested = g.stages.ms(), g.stages.nested_ms()
+    assert list(ms) == list(telemetry.STAGES) and set(nested) == {
+        "raster_bwd"}, (ms, nested)
+    assert 0 < nested["raster_bwd"] < ms["loss"] + ms["backward"], nested
+    lists = step.take_tile_lists()
+    assert lists is g.tiles and step.take_tile_lists() is None
+    # the replay binned the state it was given
+    with torch.no_grad():
+        proj, *_ = shade(before.params, batch[0], trainer.cfg.model, 0)
+        bins = bin_gaussians(proj, batch[0].width, batch[0].height,
+                             trainer.cfg.model.rasterize)
+    assert torch.equal(lists.counts, bins.tile_counts)
+    assert int(lists.entries()) == int(torch.clamp(
+        bins.tile_counts, max=lists.k_tile).sum())
+    ev = trainer.events
+    reads, samples, caps = ev["host_reads"], ev["tile_samples"], ev["capture"]
+    trainer.run(state.step + 3)                  # log_every 1: 3 log points
+    assert ev["tile_samples"] == samples + 3, ev
+    assert ev["nested_raster_bwd_ms"] > 0, ev
+    # each log point: the metrics and the guard's read, which carries the
+    # tile lists; each capture (a new SH degree) its drain
+    assert ev["host_reads"] - reads == (3 * (len(g.metrics) + 1)
+                                        + ev["capture"] - caps), ev
+
+
+@pytest.mark.cuda
 def test_capture_ms_once_per_capture(cuda_device):
     """Each capture adds its host milliseconds (warm-ups and capture) to
     ``events["capture_ms"]`` once, after one drain of the stream counted

@@ -111,10 +111,15 @@ def test_step_marks_its_stages_in_order():
     with telemetry.marks_to(marks.append):
         trainer.train_step(trainer.state, *trainer._batch(0), 0,
                            trainer.view_index(0))
-    assert marks == ["start", *telemetry.STAGES]
+    # the nested raster_bwd closes inside the backward, where the
+    # compositing's gradient reaches the per-Gaussian rows
+    assert marks == ["start", "shade", "bin", "composite", "loss",
+                     "raster_bwd", "backward", "adam", "stats"]
+    assert [m for m in marks if m not in telemetry.NESTED] == [
+        "start", *telemetry.STAGES]
     # without a hook a mark does nothing
     telemetry.mark("shade")
-    assert len(marks) == 8
+    assert len(marks) == 9
 
 
 def test_spans_are_exclusive_and_timers_inclusive(monkeypatch):
@@ -154,6 +159,68 @@ def test_stage_events_pair_consecutive_marks():
     telemetry.add_stages(ev, {})                  # nothing replayed
     assert ev["stage_samples"] == 1 and ev["stage_shade_ms"] == 0.75
     assert telemetry.StageEvents().ms() == {}
+
+
+def test_nested_stage_leaves_the_stages_and_their_sum_alone():
+    """``raster_bwd``, marked inside the backward, is timed from the loss
+    mark and splits nothing: the stages, ``stage_backward_ms`` (loss to
+    backward) and the sum of every ``stage_*_ms`` read as without it; the
+    nested time goes to ``nested_raster_bwd_ms``."""
+    times = (("start", 0.0), ("shade", 0.5), ("bin", 0.75),
+             ("composite", 1.75), ("loss", 2.0), ("backward", 6.5),
+             ("adam", 7.0), ("stats", 7.25))
+    plain, nested = telemetry.StageEvents(), telemetry.StageEvents()
+    plain.marks = [(n, _FakeEvent(t)) for n, t in times]
+    nested.marks = (plain.marks[:5] + [("raster_bwd", _FakeEvent(4.25))]
+                    + plain.marks[5:])
+    assert nested.ms() == plain.ms()
+    assert nested.ms()["backward"] == 4.5
+    assert nested.nested_ms() == {"raster_bwd": 2.25}
+    assert plain.nested_ms() == {}
+    ev_plain, ev_nested = telemetry.new_events(), telemetry.new_events()
+    telemetry.add_stages(ev_plain, plain.ms())
+    telemetry.add_stages(ev_nested, {**nested.ms(), **nested.nested_ms()})
+
+    def stage_sum(ev):
+        return sum(v for k, v in ev.items()
+                   if k.startswith("stage_") and k.endswith("_ms"))
+
+    assert stage_sum(ev_nested) == stage_sum(ev_plain) == 7.25
+    assert ev_nested["stage_backward_ms"] == ev_plain["stage_backward_ms"]
+    assert ev_nested["nested_raster_bwd_ms"] == 2.25
+    assert ev_plain["nested_raster_bwd_ms"] == 0.0
+    assert ev_nested["stage_samples"] == 1
+
+
+def test_tile_counters_equal_a_count_of_the_lists(monkeypatch):
+    """At each log point the account adds the last step's lists: their
+    entries (slots that hold a Gaussian), their slots (n_tiles × k_tile)
+    and one sample, as a direct count of K1's lists of those steps reads;
+    the host's reads are those of the schedule alone."""
+    from touchgs_torch.ops import rasterize_cuda as rc
+
+    torch.set_num_threads(1)
+    lists = []
+    plain = rc.slot_rows
+
+    def counted(attrs, *args, **kw):
+        gidx, rows = plain(attrs, *args, **kw)
+        n = attrs.shape[0] - rc.plain.DEAD_SPREAD
+        lists.append((int((gidx < n).sum()), gidx.numel()))
+        return gidx, rows
+
+    monkeypatch.setattr(rc, "slot_rows", counted)
+    trainer = Trainer(_scene(), _cfg(), device="cpu")
+    log = []
+    trainer.run(7, log_fn=log.append)
+    ev = trainer.events
+    logged = [m["step"] for m in log]
+    assert logged == [0, 3, 6] and len(lists) == 7
+    assert ev["tile_samples"] == 3
+    assert ev["tile_entries"] == sum(lists[s][0] for s in logged)
+    assert ev["tile_slots"] == sum(lists[s][1] for s in logged)
+    assert 0 < ev["tile_entries"] < ev["tile_slots"]
+    assert type(ev["tile_entries"]) is int and type(ev["tile_slots"]) is int
 
 
 def test_spans_open_profiler_ranges_only_under_the_profiler(monkeypatch):

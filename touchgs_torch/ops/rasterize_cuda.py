@@ -438,16 +438,20 @@ def rasterize_cuda(
             bins = bin_gaussians(gather_projection(proj, mesh), width,
                                  height, cfg)
         telemetry.mark("bin")
-        attrs = _with_dead_rows(mesh.gather_rows(
-            _attr_rows(proj, colors, opacities)))
     else:
         if bins is None:
             bins = bin_gaussians(proj, width, height, cfg)
         telemetry.mark("bin")
-        attrs = _pack_attrs(proj, colors, opacities)
+    rows = _attr_rows(proj, colors, opacities)
+    # the nested stage raster_bwd ends where the compositing's gradient
+    # has reached the per-Gaussian rows: the loss's backward, K3 and the
+    # rows' scatter-add
+    telemetry.mark_at_grad(rows, "raster_bwd")
+    attrs = _with_dead_rows(rows if mesh is None else mesh.gather_rows(rows))
     N = attrs.shape[0] - plain.DEAD_SPREAD
     k_tile = _fit_k_tile(cfg.k_tile if k_tile is None else k_tile, k_chunk,
                          N)
+    telemetry.note_tiles(bins.tile_counts, k_tile)
     n_tx, n_ty = bins.n_tiles_x, bins.n_tiles_y
     geom = (cfg.tile_h, cfg.tile_w, k_tile, k_chunk, n_tx, cfg)
     tile_ids = torch.arange(n_tx * n_ty, dtype=torch.int32,

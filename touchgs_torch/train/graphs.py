@@ -44,7 +44,11 @@ leave out the drain of the queue.
 
 Stages: the capture records a timing event at each ``telemetry.mark`` of
 the body, a node of the graph (``telemetry.StageEvents``);
-``take_stage_ms`` gives the last replay's stage milliseconds once.
+``take_stage_ms`` gives the last replay's stage milliseconds once.  Tile
+lists: each graph keeps the per-tile list lengths and cap that its
+capture noted (``telemetry.TileLists``), tensors its replays rewrite, and
+an eager call (a state on the CPU) its own; ``take_tile_lists`` gives the
+last call's once.
 
 A capture or replay that fails raises: nothing falls back to the eager
 step.  A state on the CPU runs ``__wrapped__``, the plain step, as each
@@ -132,6 +136,7 @@ class _Graph:
         self.metrics: dict = {}
         self.launches = dict.fromkeys(rc.launches, 0)
         self.stages = telemetry.StageEvents()
+        self.tiles = telemetry.TileLists()
 
     def replay(self, inputs: tuple) -> None:
         for dst, src in zip(self.inputs, inputs):
@@ -167,12 +172,15 @@ class GraphedStep:
         self.pool = None      # the graphs' shared memory pool
         self._stream = None   # warm-up and capture stream
         self._replayed = None  # the graph replayed last, until read
+        self._tiles = None     # the last call's tile lists, until read
 
     def __call__(self, state, camera, image, depth, unc, active_sh_degree,
                  *extra):
         if state.params.means.device.type != "cuda":
-            return self.__wrapped__(state, camera, image, depth, unc,
-                                    active_sh_degree, *extra)
+            self._tiles = telemetry.TileLists()
+            with telemetry.tiles_to(self._tiles):
+                return self.__wrapped__(state, camera, image, depth, unc,
+                                        active_sh_degree, *extra)
         inputs = (camera, image, depth, unc)
         if self.view_input:
             inputs += (view_index(extra[0], state.params.means.device),)
@@ -184,16 +192,24 @@ class GraphedStep:
         if g is None:
             g = self._capture(key, state, inputs, sh)
         g.replay(inputs)
-        self._replayed = g
+        self._replayed, self._tiles = g, g.tiles
         state.step += 1
         return state, g.metrics
 
     def take_stage_ms(self) -> dict:
-        """The last replay's milliseconds by stage (``telemetry.
-        StageEvents.ms``), once; empty where nothing replayed since the
-        last call.  The replay must have finished."""
+        """The last replay's milliseconds by stage and nested stage
+        (``telemetry.StageEvents.ms``, ``nested_ms``), once; empty where
+        nothing replayed since the last call.  The replay must have
+        finished."""
         g, self._replayed = self._replayed, None
-        return {} if g is None else g.stages.ms()
+        return {} if g is None else {**g.stages.ms(), **g.stages.nested_ms()}
+
+    def take_tile_lists(self) -> Optional[telemetry.TileLists]:
+        """The last call's tile lists (its graph's, or its eager run's),
+        once; None where nothing ran since the last call or the step's
+        render noted none."""
+        t, self._tiles = self._tiles, None
+        return t if t is not None and t.counts is not None else None
 
     def _run(self, state, inputs: tuple, sh: int) -> dict:
         return self.body(state, *inputs[:4], sh, *inputs[4:])
@@ -232,7 +248,8 @@ class GraphedStep:
             with rc.launches_on(s, g.launches), torch.cuda.graph(
                     g.graph, pool=self.pool, stream=s,
                     capture_error_mode="thread_local"), \
-                    telemetry.marks_to(g.stages):
+                    telemetry.marks_to(g.stages), \
+                    telemetry.tiles_to(g.tiles):
                 g.metrics = self._run(state, g.inputs, sh)
         for k in [k for k in self.graphs if k[-1] != key[-1]]:
             del self.graphs[k]

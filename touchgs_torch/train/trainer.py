@@ -458,9 +458,20 @@ class Trainer:
                     telemetry.count_read(n=len(metrics))
                     last_metrics = {k: float(v) for k, v in metrics.items()}
                     window_lossy = None
+                    take_lists = getattr(self.train_step, "take_tile_lists",
+                                         None)
+                    lists = take_lists() if take_lists is not None else None
                     if self._lossy_max is not None:
                         telemetry.count_read()
-                        window_lossy = float(self._lossy_max)
+                        # the last step's tile lists, reduced here, ride
+                        # on the guard's read
+                        read = [self._lossy_max.to(torch.int64)]
+                        if lists is not None:
+                            read.append(lists.entries())
+                        vals = torch.stack(read).tolist()
+                        window_lossy = float(vals[0])
+                        if lists is not None:
+                            telemetry.add_tile_lists(ev, lists, vals[1])
                         self._lossy_max = None
                 with span(ev, "log"):
                     # the reads waited for the step: its replay's stage

@@ -11,8 +11,24 @@ mark, an event-record node of the graph, so that every replay timestamps
 the boundaries on the device.  The warm-ups, the eager and scan paths and
 the CPU record nothing.  The marks of the single-scene step are ``start``
 and then ``STAGES`` in order; a stage's time is the interval from the
-mark before it.  ``Trainer.run`` reads the last replay's intervals at each
-log point, after its reads have waited for the device (``add_stages``).
+mark before it.  A nested stage (``NESTED``) lies inside one of them and
+splits nothing: its time is the interval from the mark ``NESTED`` names to
+its own, which ``mark_at_grad`` sets where the backward reaches a
+tensor's gradient (``raster_bwd``: the loss's backward, K3 and the rows'
+scatter-add, inside ``backward``).  ``Trainer.run`` reads the last
+replay's intervals at each log point, after its reads have waited for the
+device (``add_stages``): a stage's into ``events["stage_<stage>_ms"]``, a
+nested stage's into ``events["nested_<stage>_ms"]``, outside the stages'
+sum.
+
+**Tile lists.**  ``note_tiles(counts, k_tile)`` hands a render's uncapped
+per-tile list lengths and its cap to this thread's tile hook
+(``tiles_to``), where there is one: ``graphs.GraphedStep`` keeps a graph's
+(its capture's tensor, which every replay rewrites) and an eager step's.
+At each log point ``Trainer.run`` adds the last step's to ``events``
+(``tile_entries``: Σ min(count, k_tile); ``tile_slots``: n_tiles × k_tile;
+``tile_samples``: 1), reduced on the device there and read with the
+truncation guard's own read: nothing in the step, and no read more.
 
 **Host spans.**  ``span(events, name)`` adds the block's milliseconds on
 the host clock to ``events["host_<name>_ms"]``, less the time spent in
@@ -41,6 +57,8 @@ import torch
 
 # the single-scene step's stages, in the order their marks close them
 STAGES = ("shade", "bin", "composite", "loss", "backward", "adam", "stats")
+# nested stages: the mark each one's interval starts from
+NESTED = {"raster_bwd": "loss"}
 # Trainer.run's spans: each adds to events["host_<name>_ms"]
 SPANS = ("fetch", "dispatch", "read", "refine", "grow", "reset", "log",
          "ckpt")
@@ -51,11 +69,14 @@ _local = threading.local()   # this thread's mark hook and open spans
 def new_events() -> dict:
     """``Trainer.events`` at its start: the counts of growths, refines,
     opacity resets and captures; the capture milliseconds; the host's
-    reads; the stage milliseconds and their samples; the spans' host
+    reads; the stage and nested-stage milliseconds and their samples; the
+    tile lists' entries, slots and samples; the spans' host
     milliseconds."""
     events = {"grow": 0, "refine": 0, "reset_opacity": 0, "capture": 0,
-              "capture_ms": 0.0, "host_reads": 0, "stage_samples": 0}
+              "capture_ms": 0.0, "host_reads": 0, "stage_samples": 0,
+              "tile_entries": 0, "tile_slots": 0, "tile_samples": 0}
     events.update({f"stage_{s}_ms": 0.0 for s in STAGES})
+    events.update({f"nested_{s}_ms": 0.0 for s in NESTED})
     events.update({f"host_{s}_ms": 0.0 for s in SPANS})
     return events
 
@@ -68,16 +89,73 @@ def mark(stage: str) -> None:
         hook(stage)
 
 
+def mark_at_grad(t: torch.Tensor, stage: str) -> None:
+    """Close the nested ``stage`` when the backward has computed ``t``'s
+    gradient, through this thread's hook, where there is one and ``t``
+    takes a gradient.  The hook is looked up now: autograd may run the
+    gradient hook on its own device thread, on the stream of ``t``'s
+    forward (a capture's stream)."""
+    hook = getattr(_local, "hook", None)
+    if hook is not None and t.requires_grad:
+        t.register_hook(lambda grad: hook(stage))
+
+
 @contextlib.contextmanager
-def marks_to(hook: Callable[[str], None]):
-    """Send this thread's ``mark`` calls to ``hook`` while the block
-    runs."""
-    prev = getattr(_local, "hook", None)
-    _local.hook = hook
+def _hooked(name: str, hook):
+    prev = getattr(_local, name, None)
+    setattr(_local, name, hook)
     try:
         yield hook
     finally:
-        _local.hook = prev
+        setattr(_local, name, prev)
+
+
+def marks_to(hook: Callable[[str], None]):
+    """Send this thread's ``mark`` calls to ``hook`` while the block
+    runs."""
+    return _hooked("hook", hook)
+
+
+def tiles_to(hook: Callable[[torch.Tensor, int], None]):
+    """Send this thread's ``note_tiles`` calls to ``hook`` while the block
+    runs."""
+    return _hooked("tiles", hook)
+
+
+def note_tiles(counts: torch.Tensor, k_tile: int) -> None:
+    """Hand a render's (n_tiles,) uncapped list lengths and its cap to this
+    thread's tile hook (``tiles_to``), where there is one."""
+    hook = getattr(_local, "tiles", None)
+    if hook is not None:
+        hook(counts, k_tile)
+
+
+class TileLists:
+    """The per-tile list lengths and cap of the last render a step noted
+    (``note_tiles``): a graph's are its capture's tensor, which each
+    replay rewrites."""
+
+    __slots__ = ("counts", "k_tile")
+
+    def __init__(self):
+        self.counts, self.k_tile = None, 0
+
+    def __call__(self, counts: torch.Tensor, k_tile: int) -> None:
+        self.counts, self.k_tile = counts, k_tile
+
+    def entries(self) -> torch.Tensor:
+        """Σ min(count, k_tile), on the device, as an int64 scalar."""
+        return torch.clamp(self.counts, max=self.k_tile).sum(
+            dtype=torch.int64)
+
+
+def add_tile_lists(events: dict, lists: TileLists, entries: int) -> None:
+    """Add one render's tile lists to ``events``: its ``entries`` (read
+    from ``lists.entries()``), its slots and a sample."""
+    events["tile_entries"] = events.get("tile_entries", 0) + int(entries)
+    events["tile_slots"] = (events.get("tile_slots", 0)
+                            + lists.counts.numel() * lists.k_tile)
+    events["tile_samples"] = events.get("tile_samples", 0) + 1
 
 
 class StageEvents:
@@ -96,19 +174,37 @@ class StageEvents:
 
     def ms(self) -> dict:
         """Each stage's milliseconds in the last replay, summed where a
-        name recurs.  The replay must have finished."""
+        name recurs; nested marks split nothing.  The replay must have
+        finished."""
         out: dict = {}
-        for (_, a), (stage, b) in zip(self.marks, self.marks[1:]):
+        seq = [m for m in self.marks if m[0] not in NESTED]
+        for (_, a), (stage, b) in zip(seq, seq[1:]):
             out[stage] = out.get(stage, 0.0) + a.elapsed_time(b)
+        return out
+
+    def nested_ms(self) -> dict:
+        """Each nested stage's milliseconds in the last replay: from the
+        last mark before it of the stage ``NESTED`` names."""
+        out: dict = {}
+        last: dict = {}
+        for stage, ev in self.marks:
+            if stage in NESTED:
+                a = last.get(NESTED[stage])
+                if a is not None:
+                    out[stage] = out.get(stage, 0.0) + a.elapsed_time(ev)
+            else:
+                last[stage] = ev
         return out
 
 
 def add_stages(events: dict, stage_ms: Optional[dict]) -> None:
-    """Add one replay's stage milliseconds to ``events``."""
+    """Add one replay's stage and nested-stage milliseconds to
+    ``events``."""
     if not stage_ms:
         return
     for stage, ms in stage_ms.items():
-        key = f"stage_{stage}_ms"
+        key = (f"nested_{stage}_ms" if stage in NESTED
+               else f"stage_{stage}_ms")
         events[key] = events.get(key, 0.0) + ms
     events["stage_samples"] = events.get("stage_samples", 0) + 1
 
