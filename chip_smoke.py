@@ -35,12 +35,24 @@ Phases (any failure raises, and the script exits nonzero with no result):
    band-matrix path it replaced (``ssim_cm_band``), on the device, and
    against the bound of what the function must do (SSIM_FWD_OPS and
    SSIM_BWD_VALUES; this design's own traffic printed beside it).
+2c. The shade pair of every render on the card (``shade_fwd``,
+   ``shade_bwd``, ``csrc/shade.cu``) on the start states of three cells
+   (``cell_shade_state``: the benchmark's polish states of
+   ``perfbench/configs``' blender, mirror and real1m configurations, one
+   view each) against the op chain (``shade_fwd_plain``: the table,
+   means2d and depths within SHADE_ULPS of it, radii, cull radii and
+   validity equal) and its autograd backward (each group within
+   SHADE_GRAD_TOL of its largest, zero on the rows the cotangent skips);
+   at 131072 and 1,048,576 each timed per call and on the device beside
+   the op chain's forward and autograd backward and the plain backward,
+   against the bytes it cannot do without (SHADE_FWD_BYTES,
+   SHADE_BWD_BYTES a Gaussian).
 3. The training path: ``Trainer(scene, cfg).run`` on an in-memory 4-view
    800x800 scene seeded with 100k points (capacity 131072), 5 warm-up and
    20 timed steps of the graphed step, with the launch counters set to 0
-   just before and read just after (25 launches of K1 with rows, K2, K3
-   and the SSIM pair, none of K1's lists alone: each replay adds its
-   capture's counts);
+   just before and read just after (25 launches of the shade pair, K1
+   with rows, K2, K3 and the SSIM pair, none of K1's lists alone: each
+   replay adds its capture's counts);
    then one lossless ``Trainer.render_view``.
 4. Where the step's device time goes: three more steps under
    torch.profiler, the kernels by device time and the busy share.
@@ -236,7 +248,7 @@ Phases (any failure raises, and the script exits nonzero with no result):
    mode's and K6 leg's time against its bound, its issue roof (its entry
    loop's SASS a pair at one instruction a lane and clock) and its MUFU
    floor (``roofs``, models, kept out of the kernels line).
-7. One ``kernels`` JSON line (thirteen entries of measured times, errors and
+7. One ``kernels`` JSON line (fifteen entries of measured times, errors and
    launches and the computed ``bound_ms``; ``launches`` from the
    training path for its kernels, from the anatomy path for the others;
    the training path's kernels also carry ``launches_hard_scene``,
@@ -249,7 +261,10 @@ Phases (any failure raises, and the script exits nonzero with no result):
    against plain) and, under ``hard_scene``, their errors, times and
    bounds at both of its k_tiles; K1-K4 and the SSIM pair also
    ``launches_bench``; the SSIM pair also ``device_ms`` and, under
-   ``shapes``, its readings at each of phase 2b's sizes; K2 and
+   ``shapes``, its readings at each of phase 2b's sizes; the shade pair
+   ``device_ms``, the op chain's ``chain_ms`` and ``chain_device_ms``
+   and, under ``shapes``, its readings at both of phase 2c's capacities;
+   K2 and
    K3 also ``launches_tools`` and ``tile_sweep``, their largest error
    against plain at each of phase 4l's geometries),
    then the last line
@@ -284,6 +299,11 @@ phase 4k alone (its (b) on a scene written as phase 4d writes it), and
     python3 chip_smoke.py --tools
 
 phase 4l alone.
+
+    python3 chip_smoke.py --shade
+
+builds the kernels, prints ptxas's report of the shade kernels and runs
+phase 2c alone.
 
     python3 chip_smoke.py --ab OLD_CSRC
 
@@ -332,10 +352,28 @@ SSIM_VALUE_RTOL, SSIM_GRAD_TOL = 1e-6, 1e-5
 # and the backward reads them back.
 SSIM_FWD_OPS, SSIM_BWD_OPS = 5 * 44 + 3, 3 * 44 + 4
 SSIM_FWD_VALUES, SSIM_BWD_VALUES, SSIM_DESIGN_VALUES = 2, 3, 11
-# the kernels every training step launches once: K1 with rows, K2, K3 and
-# the SSIM pair of its loss
+# phase 2c: the shade pair on two cells' start states (the benchmark's
+# polish state of each configuration, ``perfbench/configs``), at the
+# capacities 131072 and 1,048,576, held to the card tests' limits: floats
+# within SHADE_ULPS of the op chain's, radii, cull radii and validity
+# equal; each group's gradient within SHADE_GRAD_TOL of its largest
+SHADE_CELLS = {"blender800": "bunny_blender_800",
+               "mirror720": "mirror_1280x720", "real1m": "bunny_real_1m"}
+SHADE_TIMED = ("blender800", "real1m")
+SHADE_ULPS, SHADE_GRAD_TOL = 2, 1e-5
+# what the stage cannot do without, a Gaussian: bytes read and written.
+# Forward: the six groups (240), alive and the means2d offset in; the
+# packed row (64), means2d, depth, radii, cull radius and validity out.
+# Backward: the six groups and the row's ten gradient columns in; the six
+# groups' gradients and the offset's out.
+SHADE_FWD_BYTES = 240 + 1 + 8 + 64 + 8 + 4 + 4 + 4 + 1
+SHADE_BWD_BYTES = 240 + 40 + 236 + 8
+# the kernels every training step launches once: the shade pair, K1 with
+# rows, K2, K3 and the SSIM pair of its loss; the SO3xR3 step, whose camera
+# takes a gradient, shades through the op chain (POSE_PATH)
 TRAIN_PATH = ("slot_rows", "composite_fwd", "composite_bwd", "ssim_fwd",
-              "ssim_bwd")
+              "ssim_bwd", "shade_fwd", "shade_bwd")
+POSE_PATH = TRAIN_PATH[:5]
 PROFILE_STEPS = 3   # training steps under torch.profiler, after the timed ones
 HOST_CALLS = 10_000  # calls a round of the host-cost table
 K4_CALLS = 200       # CUDA-event medians of K4 and torch.mul
@@ -1024,6 +1062,168 @@ def phase_ssim_kernels(dev) -> list:
              library_note="ssim_cm_band, the band-matrix products with "
              "autograd: " + ("its forward" if k == "ssim_fwd" else
                              "its autograd backward"))
+        for k in shapes]
+
+
+def cell_shade_state(name: str, dev, seed: int = 7) -> tuple:
+    """(params, camera, model config) of a cell's start state: the
+    benchmark's polish state of the configuration ``SHADE_CELLS[name]``
+    from ``seed`` and the first view of its camera path, as
+    ``perfbench`` makes them."""
+    from pathlib import Path
+
+    from perfbench import job
+    from perfbench.scene import analytic, state
+    from touchgs_torch.data.cameras import Camera
+    from touchgs_torch.models.gaussians import GaussianParams
+
+    path = (Path(__file__).resolve().parent / "perfbench" / "configs"
+            / f"{SHADE_CELLS[name]}.json")
+    cfg = json.loads(path.read_text())
+    st = state.surface_state(cfg, {"start": {"step": 15000,
+                                             "adam_nu": 1e-6}}, seed, dev)
+    s = cfg["scene"]
+    u = np.random.default_rng(seed).uniform(size=(s["views"] + 1, 4))
+    c2w = analytic.camera_poses(s["camera"], s["views"], u)[0]
+
+    def t(v):
+        return torch.tensor(np.float32(v), device=dev)
+
+    fx, fy, cx, cy = analytic.intrinsics(cfg)
+    cam = Camera(fx=t(fx), fy=t(fy), cx=t(cx), cy=t(cy),
+                 c2w=torch.as_tensor(c2w.astype(np.float32), device=dev),
+                 width=s["width"], height=s["height"])
+    return (GaussianParams(**st["params"]), cam,
+            job.train_config(cfg, seed).model)
+
+
+def shade_errors(fwd, ref) -> dict:
+    """How the forward kernel's outputs stand to the op chain's: the
+    largest distance in units of the chain's last place of the table,
+    means2d and depths, and the radii, cull radii and validity that
+    differ."""
+    def ulps(a, b):
+        mag = b.abs()
+        spacing = torch.nextafter(mag, torch.full_like(mag, float("inf"))
+                                  ) - mag
+        return float(((a - b).abs() / spacing).max())
+
+    names = ("table", "means2d", "depths", "radii", "cull_radii", "valid")
+    out = {f"{n}_ulps": ulps(fwd[i], ref[i]) for i, n in enumerate(names[:3])}
+    out.update({f"{n}_differ": int((fwd[i] != ref[i]).sum())
+                for i, n in enumerate(names) if i >= 3})
+    return out
+
+
+def shade_cotangent(table, valid, seed: int = 3):
+    """A seeded cotangent of the packed table on the valid rows, as K3 and
+    the scatter-add hand it to the stage: zero elsewhere."""
+    g = torch.Generator(device=table.device)
+    g.manual_seed(seed)
+    grad = torch.randn(table.shape, generator=g, device=table.device)
+    C = valid.shape[0]
+    grad[C:] = 0
+    grad[:C] *= valid[:, None]
+    return grad
+
+
+def phase_shade_kernels(dev) -> list:
+    """Phase 2c: ``shade_fwd`` and ``shade_bwd`` on the cells' start
+    states against the op chain (``shade_fwd_plain``) and its autograd
+    backward, and timed at 131072 and 1,048,576: per call, on the device,
+    beside the chain's forward and autograd backward and the written-out
+    plain backward, against their bounds (SHADE_FWD_BYTES and
+    SHADE_BWD_BYTES a Gaussian)."""
+    from touchgs_torch.ops import shade as sh
+
+    shapes = {"shade_fwd": {}, "shade_bwd": {}}
+    for name in SHADE_CELLS:
+        params, cam, mcfg = cell_shade_state(name, dev)
+        groups = tuple(getattr(params, g) for g in sh.GROUPS)
+        C = params.capacity
+        w2c = cam.w2c
+        off = torch.zeros((C, 2), device=dev)
+        args = (params.alive, off, cam, w2c, mcfg, 3, 512)
+        fwd = sh.shade_fwd(groups, *args)
+        leaves = [g.detach().clone().requires_grad_(True) for g in groups]
+        off_leaf = off.clone().requires_grad_(True)
+        ref = sh.shade_fwd_plain(tuple(leaves), params.alive, off_leaf,
+                                 *args[2:])
+        err = shade_errors(fwd, [r.detach() for r in ref])
+        grad = shade_cotangent(fwd[0], fwd[5])
+        got = sh.shade_bwd(grad, groups, cam, w2c, mcfg, 3)
+        want = torch.autograd.grad(ref[0], leaves + [off_leaf], grad,
+                                   retain_graph=True)
+        gerr = {}
+        for g_name, a, b in zip(list(sh.GROUPS) + ["offset"], got, want):
+            gerr[g_name] = float((a - b).abs().max()) / max(
+                float(b.abs().max()), 1e-30)
+            gerr[f"{g_name}_zero_rows_kept"] = bool(
+                (a.reshape(C, -1)[~fwd[5]] == 0).all())
+        alive = int(params.alive.sum())
+        print(f"SHADE {name} ({alive} live of {C}, {int(fwd[5].sum())} "
+              f"valid in view): forward against the op chain {err}; "
+              f"backward against autograd, of each group's largest: {gerr}")
+        check(err["table_ulps"] <= SHADE_ULPS
+              and err["means2d_ulps"] <= SHADE_ULPS
+              and err["depths_ulps"] <= SHADE_ULPS,
+              f"shade_fwd {name}: floats past {SHADE_ULPS} ulp")
+        check(err["radii_differ"] == err["cull_radii_differ"]
+              == err["valid_differ"] == 0,
+              f"shade_fwd {name}: radii, cull radii or validity differ")
+        check(all(v <= SHADE_GRAD_TOL for k, v in gerr.items()
+                  if not k.endswith("_kept")) and all(
+                      v for k, v in gerr.items() if k.endswith("_kept")),
+              f"shade_bwd {name}: gradients outside tolerance")
+        if name not in SHADE_TIMED:
+            continue
+        def chain_fwd():
+            return sh.shade_fwd_plain(tuple(leaves), params.alive, off_leaf,
+                                      *args[2:])
+
+        runs = {
+            "shade_fwd": (lambda: sh.shade_fwd(groups, *args), chain_fwd,
+                          None, SHADE_FWD_BYTES),
+            "shade_bwd": (
+                lambda: sh.shade_bwd(grad, groups, cam, w2c, mcfg, 3),
+                lambda: torch.autograd.grad(ref[0], leaves + [off_leaf],
+                                            grad, retain_graph=True),
+                lambda: sh.shade_bwd_plain(grad, groups, cam, w2c, mcfg,
+                                           3),
+                SHADE_BWD_BYTES),
+        }
+        cap = f"{C}"
+        for kernel, (fn, chain_fn, plain_fn, nbytes) in runs.items():
+            b = bound(nbytes * C)
+            print(f"  {kernel} at {cap} on the device:")
+            dev_ms = device_ms(fn)
+            print(f"  the op chain's {kernel[-3:]} at {cap} on the device:")
+            chain_dev = device_ms(chain_fn)
+            shapes[kernel][cap] = dict(
+                ms=median_ms(fn, 50), device_ms=dev_ms,
+                chain_ms=median_ms(chain_fn, 10), chain_device_ms=chain_dev,
+                plain_ms=(median_ms(plain_fn, 5) if plain_fn else None),
+                bound_ms=b[0], bound_by=b[1],
+                max_abs_err=(err if kernel == "shade_fwd" else gerr))
+            r = shapes[kernel][cap]
+            print(f"SHADE {kernel} at {cap}: {r['ms']:.4f} ms a call, device "
+                  f"{dev_ms:.5f} ms ({100 * b[0] / dev_ms:.1f}% of its bound "
+                  f"{b[0]:.5f} ms, {b[1]}); the op chain {r['chain_ms']:.4f} "
+                  f"ms a call, device {chain_dev:.5f} ms; plain "
+                  f"{r['plain_ms']}")
+        del ref, want, leaves
+        torch.cuda.empty_cache()
+    first = str(131072)
+    return [
+        dict(name=k, route="cuda", source="touchgs_torch/csrc/shade.cu",
+             replaces="none: the JAX package leaves projection, SH and "
+             "packing to XLA", **{f: v for f, v in shapes[k][first].items()
+                                  if f != "max_abs_err"},
+             max_abs_err=shapes[k][first]["max_abs_err"], shapes=shapes[k],
+             library_ms=None,
+             library_note="the op chain (splatfacto.shade, _attr_rows): "
+             + ("its forward" if k == "shade_fwd" else
+                "its autograd backward") + " as chain_ms")
         for k in shapes]
 
 
@@ -1748,7 +1948,8 @@ def phase_cli(card: str) -> tuple:
               and bool(torch.isfinite(pd).all())
               and float(pd.abs().max()) > 0,
               "cli SO3xR3: non-finite loss or pose deltas, or none moved")
-        check(all(pose_counts[k] >= CLI_POSE_STEPS for k in TRAIN_PATH),
+        check(all(pose_counts[k] >= CLI_POSE_STEPS for k in POSE_PATH)
+              and pose_counts["shade_bwd"] == 0,
               f"cli SO3xR3 launches {pose_counts}")
         del posed
     print(f"cli: times {json.dumps(times)} on {card}")
@@ -3167,7 +3368,8 @@ def phase_viewer(card: str, trainer) -> tuple:
         want = {"slot_lists": 0, "slot_rows": PAR_STEPS + n_during,
                 "composite_fwd": PAR_STEPS + n_during,
                 "composite_bwd": PAR_STEPS, "ssim_fwd": PAR_STEPS,
-                "ssim_bwd": PAR_STEPS}
+                "ssim_bwd": PAR_STEPS, "shade_fwd": PAR_STEPS + n_during,
+                "shade_bwd": PAR_STEPS}
         check(during == want, f"launches while training with the viewer "
               f"{during}, want {want}")
         with urllib.request.urlopen(v.url + "state", timeout=60) as r:
@@ -3194,7 +3396,8 @@ def phase_viewer(card: str, trainer) -> tuple:
         n_frames = 3 + VIEW_FRAMES
         want = {"slot_lists": 0, "slot_rows": n_frames,
                 "composite_fwd": n_frames, "composite_bwd": 0,
-                "ssim_fwd": 0, "ssim_bwd": 0}
+                "ssim_fwd": 0, "ssim_bwd": 0, "shade_fwd": n_frames,
+                "shade_bwd": 0}
         check(counts == want, f"viewer launches after training {counts}, "
               f"want {want}")
         c2w = orbit_c2w(0.4, 0.35, 3.0)
@@ -3457,10 +3660,11 @@ def phase_multiscene(card: str, dev) -> tuple:
                 + ("mesh" if on_mesh else "multi-scene"))
         want = {"slot_lists": 0, "slot_rows": MS_STEPS,
                 "composite_fwd": MS_STEPS, "composite_bwd": MS_STEPS,
-                "ssim_fwd": MS_STEPS * S, "ssim_bwd": MS_STEPS * S}
+                "ssim_fwd": MS_STEPS * S, "ssim_bwd": MS_STEPS * S,
+                "shade_fwd": 0, "shade_bwd": 0}
         check(counts == want, f"{name} launches {counts}, want {want} "
               f"(one of each K1-K3 a step for all {S} scenes, one SSIM a "
-              f"scene)")
+              f"scene, the op chain's shading)")
         check(ev["refine"] >= 1 and ev["reset_opacity"] >= 1,
               f"{name} schedule ran {ev}")
         losses = met["loss_per_scene"].tolist()
@@ -3603,7 +3807,7 @@ def phase_sharded(card: str, dev, batch) -> tuple:
     counts = dict(rc.launches)
     want = {"slot_lists": 0, "slot_rows": SHARDS + 1,
             "composite_fwd": SHARDS + 1, "composite_bwd": SHARDS + 1,
-            "ssim_fwd": 2, "ssim_bwd": 2}
+            "ssim_fwd": 2, "ssim_bwd": 2, "shade_fwd": 2, "shade_bwd": 2}
     check(counts == want, f"sharded launches {counts}, want {want}")
     same_step(f"tile_shards={SHARDS}", m4["loss"], rm["loss"], st4.params,
               ref.params, cfg.optim)
@@ -3678,7 +3882,8 @@ def phase_sharded(card: str, dev, batch) -> tuple:
     want = {"slot_lists": 0, "slot_rows": SHARD_HOLD * (SHARDS + 1),
             "composite_fwd": SHARD_HOLD * (SHARDS + 1),
             "composite_bwd": SHARD_HOLD * (SHARDS + 1),
-            "ssim_fwd": SHARD_HOLD * 2, "ssim_bwd": SHARD_HOLD * 2}
+            "ssim_fwd": SHARD_HOLD * 2, "ssim_bwd": SHARD_HOLD * 2,
+            "shade_fwd": SHARD_HOLD * 2, "shade_bwd": SHARD_HOLD * 2}
     check(graph_counts == want, f"graphed sharded launches {graph_counts}, "
           f"want {want}")
 
@@ -4367,7 +4572,7 @@ def phase_graph_pose(card: str, scene, cfg) -> dict:
           f"graph pool {g['pool'] / 2**20:.1f} MiB; {g['wall_s']:.2f} s "
           f"graphed against {e['wall_s']:.2f} s eager; launches "
           f"{g['counts']}", flush=True)
-    want = {k: 0 if k == "slot_lists" else GRAPH_POSE_STEPS
+    want = {k: GRAPH_POSE_STEPS if k in POSE_PATH else 0
             for k in rc.launches}
     check(g["captures"] == g["sh"] + 1 and e["captures"] == 0
           and len(g["views"]) >= 3,
@@ -4467,6 +4672,17 @@ def main() -> int:
         print(card(), flush=True)
         phase_tools(card())
         return 0
+    if sys.argv[1:] == ["--shade"]:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        print(card(), flush=True)
+        from touchgs_torch.ops import cuda_build
+
+        cuda_build.build()
+        print(cuda_build.build_logs.get("shade", "(shade already built)"))
+        print(json.dumps({"kernels": phase_shade_kernels(
+            torch.device("cuda"))}))
+        return 0
     if len(sys.argv) == 3 and sys.argv[1] == "--ab":
         print(card(), flush=True)
         phase_ab(torch.device("cuda"), sys.argv[2])
@@ -4483,7 +4699,8 @@ def main() -> int:
     dev = torch.device("cuda")
 
     k4, loops = phase_build()
-    kernels = phase_kernels(dev) + phase_ssim_kernels(dev)
+    kernels = (phase_kernels(dev) + phase_ssim_kernels(dev)
+               + phase_shade_kernels(dev))
     phase_reference(dev)
     counts, trainer, step_ms = phase_train(card_name)
     phase_profile(lambda: trainer.run(trainer.state.step + PROFILE_STEPS))

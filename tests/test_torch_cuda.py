@@ -841,6 +841,203 @@ def test_ssim_wrappers_check_tensors_on_card(cuda_device):
     assert rc.launches == before
 
 
+# ---- the shade stage (csrc/shade.cu) ---------------------------------------
+
+# the cells' start states (the benchmark's polish states, SH 3) and the
+# CPU tests' planted state at each active degree and without eps2d
+SHADE_STATES = ["blender800", "mirror720", "real1m", "planted0", "planted1",
+                "planted2", "planted3", "degenerate"]
+
+
+def shade_state(name, dev) -> tuple:
+    """(groups, alive, camera, model config, active degree) of a state of
+    SHADE_STATES on ``dev``."""
+    from chip_smoke import cell_shade_state
+    from test_torch_shade import camera as planted_camera
+    from test_torch_shade import planted
+    from touchgs_torch.ops import shade as sh
+
+    if name in ("blender800", "mirror720", "real1m"):
+        params, cam, mcfg = cell_shade_state(name, dev)
+        return (tuple(getattr(params, g) for g in sh.GROUPS), params.alive,
+                cam, mcfg, 3)
+    degenerate = name == "degenerate"
+    active = 3 if degenerate else int(name[-1])
+    groups, alive = planted(3, seed=30 + active, isotropic=degenerate)
+    c = planted_camera()
+    cam = Camera(*(getattr(c, f).to(dev) for f in ("fx", "fy", "cx", "cy",
+                                                   "c2w")),
+                 width=c.width, height=c.height)
+    mcfg = ModelConfig(sh_degree=3, rasterize=RasterizeConfig(
+        eps2d=0.0 if degenerate else 0.3))
+    return (tuple(g.to(dev) for g in groups), alive.to(dev), cam, mcfg,
+            active)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("state", SHADE_STATES)
+def test_shade_kernels_match_the_op_chain(cuda_device, state):
+    """The forward kernel against the op chain on the card
+    (``shade_fwd_plain``: ``splatfacto.shade`` and ``_attr_rows``): the
+    table, means2d and depths within chip_smoke.SHADE_ULPS of the chain's,
+    radii, cull radii and validity equal, the dead rows zero; the
+    backward kernel against ``torch.autograd.grad`` of the chain for a
+    seeded cotangent on the valid rows: each group within SHADE_GRAD_TOL
+    of its largest, zero on every row the cotangent skips, the colour
+    groups' zeros where autograd's are."""
+    from chip_smoke import SHADE_GRAD_TOL, SHADE_ULPS, shade_errors
+    from test_torch_shade import assert_grads_close, chain_grads
+    from touchgs_torch.ops import shade as sh
+
+    groups, alive, cam, mcfg, active = shade_state(state, cuda_device)
+    C = groups[0].shape[0]
+    off = torch.zeros((C, 2), device=cuda_device)
+    before = dict(rc.launches)
+    fwd = sh.shade_fwd(groups, alive, off, cam, cam.w2c, mcfg, active, 512)
+    ref = sh.shade_fwd_plain(groups, alive, off, cam, cam.w2c, mcfg, active,
+                             512)
+    err = shade_errors(fwd, ref)
+    assert all(err[f"{k}_ulps"] <= SHADE_ULPS
+               for k in ("table", "means2d", "depths")), err
+    assert err["radii_differ"] == err["cull_radii_differ"] == 0, err
+    assert err["valid_differ"] == 0, err
+    assert not bool(fwd[0][C:].any())
+    assert int(fwd[5].sum()) > 0
+    valid, grad, want = chain_grads(groups, alive, cam, mcfg, active)
+    assert torch.equal(valid, fwd[5])
+    got = sh.shade_bwd(grad, groups, cam, cam.w2c, mcfg, active)
+    torch.cuda.synchronize()
+    assert _counts_since(before, rc.launches) == {
+        **dict.fromkeys(before, 0), "shade_fwd": 1, "shade_bwd": 1}
+    assert_grads_close(got, want, valid, SHADE_GRAD_TOL)
+
+
+@pytest.mark.cuda
+def test_shade_function_launches_and_no_grad(cuda_device):
+    """``render``'s path on the card: ``shade_packed`` launches the forward
+    kernel, its gradient the backward kernel once; under ``no_grad`` (an
+    eval, CLI or viewer render) the forward alone; the offset's gradient
+    is the table's two mean columns."""
+    from touchgs_torch.models.gaussians import GaussianParams
+    from touchgs_torch.ops import shade as sh
+
+    groups, alive, cam, mcfg, active = shade_state("planted3", cuda_device)
+    leaves = [g.clone().requires_grad_(True) for g in groups]
+    off = torch.zeros((groups[0].shape[0], 2), device=cuda_device,
+                      requires_grad=True)
+    before = dict(rc.launches)
+    with torch.no_grad():
+        sh.shade_packed(GaussianParams(*groups, alive), cam, mcfg, active)
+    proj, table = sh.shade_packed(GaussianParams(*leaves, alive), cam, mcfg,
+                                  active, off)
+    cot = torch.randn(table.shape, device=cuda_device) * torch.cat(
+        [proj.valid, proj.valid.new_zeros(512)])[:, None]
+    grads = torch.autograd.grad(table, leaves + [off], cot)
+    torch.cuda.synchronize()
+    assert _counts_since(before, rc.launches) == {
+        **dict.fromkeys(before, 0), "shade_fwd": 2, "shade_bwd": 1}
+    assert torch.equal(grads[-1], cot[:off.shape[0], :2])
+
+
+@pytest.mark.cuda
+def test_shade_graph_replay_equals_eager(cuda_device):
+    """The forward and backward captured in a CUDA graph: a replay equals
+    the eager call bit for bit, before and after new parameters are copied
+    into the captured ones."""
+    from touchgs_torch.models.gaussians import GaussianParams
+    from touchgs_torch.ops import shade as sh
+
+    groups, alive, cam, mcfg, active = shade_state("blender800",
+                                                   cuda_device)
+    leaves = [g.clone().requires_grad_(True) for g in groups]
+    off = torch.zeros((groups[0].shape[0], 2), device=cuda_device,
+                      requires_grad=True)
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(0)
+    cot = torch.randn((off.shape[0] + 512, 16), generator=g,
+                      device=cuda_device)
+
+    def step():
+        proj, table = sh.shade_packed(GaussianParams(*leaves, alive), cam,
+                                      mcfg, active, off)
+        return (table.detach(), proj.radii, proj.valid,
+                *torch.autograd.grad(table, leaves + [off], cot))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = step()
+    for k in range(2):
+        if k:
+            with torch.no_grad():
+                leaves[0].add_(0.01)
+                leaves[4].mul_(0.5)
+        graph.replay()
+        eager = step()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(captured, eager))
+
+
+@pytest.mark.cuda
+def test_shade_no_sync(cuda_device):
+    """The function's forward and backward make no synchronisation:
+    ``set_sync_debug_mode("error")`` raises on any."""
+    from touchgs_torch.models.gaussians import GaussianParams
+    from touchgs_torch.ops import shade as sh
+
+    groups, alive, cam, mcfg, active = shade_state("planted2", cuda_device)
+    leaves = [g.clone().requires_grad_(True) for g in groups]
+    w2c = cam.w2c
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, table = sh.shade_packed(GaussianParams(*leaves, alive), cam, mcfg,
+                                   active)
+        torch.autograd.grad(table.sum(), leaves)
+        sh.shade_bwd(torch.zeros_like(table), groups, cam, w2c, mcfg, active)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+@pytest.mark.cuda
+def test_shade_wrappers_check_tensors_on_card(cuda_device):
+    """The kernels' wrappers raise before they launch on a tensor of the
+    CPU among the card's, a group of the wrong type or shape, a
+    non-contiguous group, an active degree past the configuration's and a
+    gradient table that is not 16-byte aligned."""
+    from touchgs_torch.ops import shade as sh
+
+    groups, alive, cam, mcfg, _ = shade_state("planted3", cuda_device)
+    w2c = cam.w2c
+    C = groups[0].shape[0]
+
+    def fwd(gs=groups, al=alive, active=3):
+        return sh.shade_fwd(tuple(gs), al, None, cam, w2c, mcfg, active, 512)
+
+    table = torch.zeros((C + 512) * 16 + 1, device=cuda_device)
+    bad = {
+        "unsupported devices": lambda: fwd(al=alive.cpu()),
+        r"means: .* got torch\.float64": lambda: fwd(
+            gs=(groups[0].double(),) + groups[1:]),
+        r"sh_rest: want .* \(300, 15, 3\)": lambda: fwd(
+            gs=groups[:5] + (groups[5][:, :8].contiguous(),)),
+        r"quats: want contiguous": lambda: fwd(
+            gs=(groups[0], groups[1].t().contiguous().t()) + groups[2:]),
+        "active SH degree 4": lambda: fwd(active=4),
+        "16-byte aligned": lambda: sh.shade_bwd(
+            table[1:].view(C + 512, 16), groups, cam, w2c, mcfg, 3),
+    }
+    before = dict(rc.launches)
+    for match, call in bad.items():
+        with pytest.raises(ValueError, match=match):
+            call()
+    assert rc.launches == before
+
+
 def _case_shape(case):
     """(th, tw) of a tile case: ``saturating_<th>x<tw>``, else 32x32."""
     if case.startswith("saturating_"):
@@ -1249,7 +1446,8 @@ def test_viewer_frame_on_card(cuda_device):
         torch.cuda.synchronize()
         assert rc.launches == {"slot_lists": 0, "slot_rows": 5,
                                "composite_fwd": 5, "composite_bwd": 2,
-                               "ssim_fwd": 2, "ssim_bwd": 2}
+                               "ssim_fwd": 2, "ssim_bwd": 2,
+                               "shade_fwd": 5, "shade_bwd": 2}
     c2w = orbit_c2w(0.3, 0.2, 2.5)
     f = np.float32(0.8 * 96)
     cam = Camera(*(torch.tensor(np.float32(x), device=cuda_device)
@@ -1293,7 +1491,8 @@ def test_two_scene_step_on_card(cuda_device):
     torch.cuda.synchronize()
     assert rc.launches == {"slot_lists": 0, "slot_rows": 1,
                            "composite_fwd": 1, "composite_bwd": 1,
-                           "ssim_fwd": 2, "ssim_bwd": 2}
+                           "ssim_fwd": 2, "ssim_bwd": 2, "shade_fwd": 0,
+                           "shade_bwd": 0}
     step = make_train_step(cfg, opt)
     for s in range(2):
         p = copy.deepcopy(params[s])
@@ -1331,7 +1530,8 @@ def test_tile_shards_on_card(cuda_device):
         n = max(shards, 1)
         assert rc.launches == {"slot_lists": 0, "slot_rows": n,
                                "composite_fwd": n, "composite_bwd": n,
-                               "ssim_fwd": 0, "ssim_bwd": 0}
+                               "ssim_fwd": 0, "ssim_bwd": 0, "shade_fwd": 0,
+                               "shade_bwd": 0}
         outs[shards] = (out, grads)
     (o0, g0), (o4, g4) = outs[0], outs[4]
     for k in ("rgb", "depth", "acc"):
@@ -1417,7 +1617,7 @@ def test_packed_grid_slices_on_card(cuda_device, shards):
     assert rc.launches == {"slot_lists": 0, "slot_rows": shards + 1,
                            "composite_fwd": shards + 1,
                            "composite_bwd": shards + 1, "ssim_fwd": 0,
-                           "ssim_bwd": 0}
+                           "ssim_bwd": 0, "shade_fwd": 0, "shade_bwd": 0}
     assert float(whole[2][:, plain.ROW_DONE].max()) > 0
     assert_slices_equal_whole(sliced, whole)
 
@@ -1516,7 +1716,8 @@ def test_multiscene_mesh_world_of_one(cuda_device):
             torch.cuda.synchronize()
             assert rc.launches == {"slot_lists": 0, "slot_rows": 1,
                                    "composite_fwd": 1, "composite_bwd": 1,
-                                   "ssim_fwd": 2, "ssim_bwd": 2}
+                                   "ssim_fwd": 2, "ssim_bwd": 2,
+                                   "shade_fwd": 0, "shade_bwd": 0}
             stepped[name] = (whole(state, m), metrics)
         for name, m in meshes.items():
             state = ms.make_multiscene_refine_step(cfg, m)(
@@ -1633,13 +1834,15 @@ def test_graphed_step_matches_eager(cuda_device):
         counts[name] = dict(rc.launches)
         assert state.step == 5
     want = {"slot_lists": 0, "slot_rows": 5, "composite_fwd": 5,
-            "composite_bwd": 5, "ssim_fwd": 5, "ssim_bwd": 5}
+            "composite_bwd": 5, "ssim_fwd": 5, "ssim_bwd": 5,
+            "shade_fwd": 5, "shade_bwd": 5}
     assert counts == {"eager": want, "graph": want}, counts
     assert trainer.events["capture"] == 1 and len(step.graphs) == 1
     w = graphs.WARMUP_ITERS
     assert _counts_since(warm0, rc.launches_warmup) == {
         "slot_lists": 0, "slot_rows": w, "composite_fwd": w,
-        "composite_bwd": w, "ssim_fwd": w, "ssim_bwd": w}
+        "composite_bwd": w, "ssim_fwd": w, "ssim_bwd": w, "shade_fwd": w,
+        "shade_bwd": w}
     assert np.isfinite(logs["graph"]).all()
     np.testing.assert_allclose(logs["graph"], logs["eager"], rtol=1e-3)
 
@@ -1861,17 +2064,20 @@ def _graph_against_eager(step, state, batches: list, between=None) -> dict:
     return out
 
 
-def _check_graph_against_eager(out: dict, n_launches: int,
-                               n_losses: int) -> None:
-    """``n_launches`` of each of K1 with rows, K2 and K3 and ``n_losses``
-    of each SSIM kernel (one a scene a step) on each side."""
+def _check_graph_against_eager(out: dict, n_launches: int, n_losses: int,
+                               n_shades: int) -> None:
+    """``n_launches`` of each of K1 with rows, K2 and K3, ``n_losses`` of
+    each SSIM kernel (one a scene a step) and ``n_shades`` of each shade
+    kernel (one a step where ``render`` shades on the card) on each
+    side."""
     (el, es, ec), (gl, gs, gc) = out["eager"], out["graph"]
     assert np.isfinite(gl).all()
     np.testing.assert_allclose(gl, el, rtol=1e-3)
     assert _same_tensors(graphs.state_tensors(gs), graphs.state_tensors(es))
     want = {"slot_lists": 0, "slot_rows": n_launches,
             "composite_fwd": n_launches, "composite_bwd": n_launches,
-            "ssim_fwd": n_losses, "ssim_bwd": n_losses}
+            "ssim_fwd": n_losses, "ssim_bwd": n_losses,
+            "shade_fwd": n_shades, "shade_bwd": n_shades}
     assert ec == want and gc == want, (ec, gc)
 
 
@@ -1889,13 +2095,15 @@ def test_graphed_pose_step_one_capture_for_three_views(cuda_device):
     """The SO3xR3 step graphed against its ``__wrapped__`` over 5 steps on
     views 0, 1, 2, 0, 1 (each a device index): losses rtol 1e-3, every
     state tensor (the pose deltas too) equal, 5 launches each of K1 with
-    rows, K2 and K3; one capture serves the three views."""
+    rows, K2 and K3 and none of the shade kernels (the camera takes a
+    gradient, so ``render`` runs the op chain); one capture serves the
+    three views."""
     trainer = _pose_trainer()
     step = trainer.train_step
     batches = [(*trainer._batch(v), 3, trainer.view_index(v))
                for v in (0, 1, 2, 0, 1)]
     out = _graph_against_eager(step, trainer.state, batches)
-    _check_graph_against_eager(out, 5, 5)
+    _check_graph_against_eager(out, 5, 5, 0)
     assert step.events["capture"] == 1 and len(step.graphs) == 1
     assert float(out["graph"][1].pose_deltas.abs().max()) > 0
 
@@ -1912,7 +2120,7 @@ def test_graphed_tile_shards_step_matches_eager(cuda_device):
     assert isinstance(step, GraphedStep)
     batches = [(*trainer._batch(i % 2), 3) for i in range(5)]
     _check_graph_against_eager(
-        _graph_against_eager(step, trainer.state, batches), 4 * 5, 5)
+        _graph_against_eager(step, trainer.state, batches), 4 * 5, 5, 5)
     assert events["capture"] == 1
 
 
@@ -1960,7 +2168,7 @@ def test_graphed_multiscene_step_refine_and_reset(cuda_device):
         return st
 
     out = _graph_against_eager(step, state, batches, between)
-    _check_graph_against_eager(out, 5, 2 * 5)
+    _check_graph_against_eager(out, 5, 2 * 5, 0)
     assert step.events["capture"] == 1 and len(step.graphs) == 1
 
 
@@ -1991,12 +2199,13 @@ def test_graphed_mesh_and_sharded_steps_in_nccl_world_of_one(cuda_device):
         step = make_sharded_train_step(cfg, mesh, trainer.optimizer)
         batches = [(*trainer._batch(i % 2), 3) for i in range(5)]
         _check_graph_against_eager(_graph_against_eager(
-            step, shard_state(trainer.state, mesh), batches), 5, 5)
+            step, shard_state(trainer.state, mesh), batches), 5, 5, 5)
         assert step.events["capture"] == 1
         opt, state, batches = _two_scenes(cfg)
         step = ms.make_multiscene_train_step(cfg, opt, mesh)
         _check_graph_against_eager(_graph_against_eager(
-            step, ms.shard_multiscene_state(state, mesh), batches), 5, 2 * 5)
+            step, ms.shard_multiscene_state(state, mesh), batches), 5, 2 * 5,
+            0)
         assert step.events["capture"] == 1
     finally:
         torch.distributed.destroy_process_group()

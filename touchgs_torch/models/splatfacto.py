@@ -11,6 +11,13 @@
 
 The screen-space positional gradient that densification needs is the
 gradient of the loss with respect to an explicit zero ``means2d_offset``.
+
+On the card, through the tile kernels and with a camera that takes no
+gradient, `render` shades with ``ops.shade``'s two kernels
+(``shade_packed``: projection, SH and the packed attribute table in one
+pass, its VJP in one more); elsewhere, and where the camera takes a
+gradient (the SO3xR3 pose step, whose camera gradient is a sum over all
+Gaussians), it runs `shade`, the op chain, with autograd.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ from touchgs_torch.ops.rasterize_cuda import rasterize_cuda
 from touchgs_torch.ops.rasterize_ref import RenderOutput, rasterize_dense
 from touchgs_torch.ops.rasterize_tiled import rasterize_tiled
 from touchgs_torch.ops.sh import eval_sh
+from touchgs_torch.ops.shade import shade_packed
 from touchgs_torch.ops.ssim import ssim_cm
 from touchgs_torch.utils import telemetry
 
@@ -83,6 +91,15 @@ def _background(colour: tuple, device: torch.device) -> torch.Tensor:
     return bg
 
 
+def _fused_shade(params: GaussianParams, camera: Camera) -> bool:
+    """Whether `render` shades through ``ops.shade``'s kernels: the state
+    is on the card and the camera takes no gradient (a per-Gaussian
+    kernel does not sum the camera's)."""
+    return params.means.is_cuda and not any(
+        t.requires_grad for t in (camera.c2w, camera.fx, camera.fy,
+                                  camera.cx, camera.cy))
+
+
 def render(
     params: GaussianParams,
     camera: Camera,
@@ -104,8 +121,17 @@ def render(
     rcfg = cfg.rasterize
     if k_tile is None:
         k_tile = rcfg.k_tile
-    proj, colors, opacities, bg = shade(params, camera, cfg, active_sh_degree,
-                                        background, means2d_offset)
+    attrs = None
+    if rcfg.use_pallas and not use_dense and _fused_shade(params, camera):
+        proj, attrs = shade_packed(params, camera, cfg, active_sh_degree,
+                                   means2d_offset, dead_rows=mesh is None)
+        colors = opacities = None
+        bg = (background if background is not None
+              else _background(cfg.background, params.means.device))
+    else:
+        proj, colors, opacities, bg = shade(params, camera, cfg,
+                                            active_sh_degree, background,
+                                            means2d_offset)
     telemetry.mark("shade")
     if use_dense:
         if mesh is not None:
@@ -119,7 +145,7 @@ def render(
         out = rasterize_cuda(
             proj, colors, opacities, camera.width, camera.height, rcfg,
             background=bg, k_tile=k_tile, k_chunk=rcfg.k_chunk,
-            tile_shards=tile_shards, mesh=mesh,
+            tile_shards=tile_shards, mesh=mesh, attrs=attrs,
         )
     else:
         # the scan path takes k_tile but not k_chunk, as in the JAX package

@@ -2,7 +2,8 @@
 
 Each ``<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C launcher (``<name>_launch``), loaded with ``ctypes``;
-``ssim.cu`` holds two (``ssim_fwd_launch``, ``ssim_bwd_launch``).
+``ssim.cu`` and ``shade.cu`` hold two each (``ssim_fwd_launch``,
+``ssim_bwd_launch``; ``shade_fwd_launch``, ``shade_bwd_launch``).
 Builds happen at first use, one ``nvcc`` process per source, all started
 together, into ``csrc/build/<hash of the sources and flags>/``, so a changed
 source rebuilds and an unchanged one is reused.  Nothing is built on import.
@@ -28,15 +29,16 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC / "build"
 KERNELS = ("slot_lists", "composite_fwd", "composite_bwd", "compile_smoke",
-           "anatomy_variants", "bf16_probe", "ssim")
+           "anatomy_variants", "bf16_probe", "ssim", "shade")
 # launchers that live in another source's library than their own name's
-LIBRARY = {"ssim_fwd": "ssim", "ssim_bwd": "ssim"}
+LIBRARY = {"ssim_fwd": "ssim", "ssim_bwd": "ssim", "shade_fwd": "shade",
+           "shade_bwd": "shade"}
 # No fast-math flag: exp2f and the divides stay IEEE-accurate.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# per-source extra flags: the backward rounds every operation on its own,
-# as its plain version does (see composite_bwd.cu)
-EXTRA_FLAGS = {"composite_bwd": ("-fmad=false",)}
+# per-source extra flags: K3 and the shade kernels round every operation on
+# its own, as their plain versions do (see composite_bwd.cu, shade.cu)
+EXTRA_FLAGS = {"composite_bwd": ("-fmad=false",), "shade": ("-fmad=false",)}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # launcher argument types: pointers and the stream as c_void_p
@@ -58,6 +60,15 @@ SIGNATURES = {
     # x, y; C, H, W; x's and y's strides; taps (host), maps, grad, dx;
     # dx's strides; stream
     "ssim_bwd": [_P, _P] + [_I] * 9 + [_P] * 4 + [_I] * 3 + [_P],
+    # means, quats, log_scales, logit_opacities, sh_dc, sh_rest, alive,
+    # offset (or null), w2c, c2w, fx, fy, cx, cy; table, means2d, depths,
+    # radii, cull_radii, valid; n, dead, n_rest, active, width, height;
+    # near, eps2d, sigma_cutoff, 1 / alpha_threshold; stream
+    "shade_fwd": [_P] * 20 + [_I] * 6 + [_F] * 4 + [_P],
+    # grad_table, the six groups, w2c, c2w, fx, fy, cx, cy; their seven
+    # gradients (the offset's last); n, n_rest, active, width, height;
+    # near, eps2d; stream
+    "shade_bwd": [_P] * 20 + [_I] * 5 + [_F] * 2 + [_P],
 }
 # launches of compile_smoke (the other wrappers count their own)
 launches = {"compile_smoke": 0}

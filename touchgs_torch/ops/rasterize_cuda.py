@@ -3,9 +3,12 @@ backward (port of ``touchgs_tpu/ops/rasterize_pallas.py``).
 
 Division of labour, as in the JAX package:
 
-- **PyTorch**: projection, binning (``ops.tiles``), attribute packing, and
-  the backward of the per-tile gather, PyTorch's scatter-add, so the
-  kernels stay free of atomics.
+- **PyTorch**: binning (``ops.tiles``) and the backward of the per-tile
+  gather, PyTorch's scatter-add, so the kernels stay free of atomics;
+  projection, SH and attribute packing too on the CPU and where the
+  camera takes a gradient (``_attr_rows``), while ``splatfacto.render``
+  hands the card's other renders the table ``ops.shade``'s kernels
+  packed (``attrs``).
 - **K1** ``slot_rows`` (``csrc/slot_lists.cu``): the front-packed per-tile
   lists ``gidx`` and, in the same pass, the dense ``(n_tiles, k_tile, 16)``
   attribute rows ``attrs[gidx]`` the compositing kernels read.
@@ -65,10 +68,12 @@ MAX_TILE_PIXELS = 16384
 
 # kernel launches by wrapper; only a launch of the CUDA kernel counts.  A
 # live viewer renders on another thread than training, so the counts are
-# incremented under a lock.  The SSIM kernels of ``ops.ssim``, which run in
-# the same steps and graphs, count here too.
+# incremented under a lock.  The SSIM kernels of ``ops.ssim`` and the shade
+# kernels of ``ops.shade``, which run in the same steps and graphs, count
+# here too.
 launches = {"slot_lists": 0, "slot_rows": 0, "composite_fwd": 0,
-            "composite_bwd": 0, "ssim_fwd": 0, "ssim_bwd": 0}
+            "composite_bwd": 0, "ssim_fwd": 0, "ssim_bwd": 0,
+            "shade_fwd": 0, "shade_bwd": 0}
 # the launches of the graphed step's warm-ups, on a clone of the state
 # (``train/graphs.py``), counted apart from ``launches``
 launches_warmup = dict.fromkeys(launches, 0)
@@ -421,9 +426,15 @@ def rasterize_cuda(
     early_exit: bool = True,
     tile_shards: int = 0,
     mesh=None,
+    attrs: Optional[torch.Tensor] = None,
 ) -> RenderOutput:
     """Render through the tile kernels (their plain versions on the CPU).
     ``early_exit=False`` turns off the forward's tile-wide exit.
+
+    ``attrs`` is the packed attribute table of ``shade.shade_packed``, read
+    in place of packing ``colors``, ``opacities`` and ``proj``'s means,
+    conics and depths: followed by its 512 dead rows, or with a ``mesh``
+    this rank's rows alone.
 
     ``tile_shards > 1`` composites the tile grid in that many contiguous
     slices (``_composite_shards``); the image equals the unsharded one.
@@ -442,12 +453,17 @@ def rasterize_cuda(
         if bins is None:
             bins = bin_gaussians(proj, width, height, cfg)
         telemetry.mark("bin")
-    rows = _attr_rows(proj, colors, opacities)
+    packed = attrs is not None
+    if not packed:
+        attrs = _attr_rows(proj, colors, opacities)
     # the nested stage raster_bwd ends where the compositing's gradient
     # has reached the per-Gaussian rows: the loss's backward, K3 and the
     # rows' scatter-add
-    telemetry.mark_at_grad(rows, "raster_bwd")
-    attrs = _with_dead_rows(rows if mesh is None else mesh.gather_rows(rows))
+    telemetry.mark_at_grad(attrs, "raster_bwd")
+    if mesh is not None:
+        attrs = _with_dead_rows(mesh.gather_rows(attrs))
+    elif not packed:
+        attrs = _with_dead_rows(attrs)
     N = attrs.shape[0] - plain.DEAD_SPREAD
     k_tile = _fit_k_tile(cfg.k_tile if k_tile is None else k_tile, k_chunk,
                          N)
