@@ -154,11 +154,10 @@ def power_limit_w() -> float | None:
 
 
 def launch_counts() -> dict:
-    """The launch counters of K1-K3 and of K4, by wrapper."""
+    """The kernels' launch counters (``cuda_build.launches``), by key."""
     from touchgs_torch.ops import cuda_build
-    from touchgs_torch.ops import rasterize_cuda as rc
 
-    return {**rc.launches, **cuda_build.launches}
+    return dict(cuda_build.launches)
 
 
 def build_state_and_step(device="cuda", width: int = WIDTH,

@@ -9,6 +9,9 @@ runs where JAX is not installed; on a GPU machine run it with
 (``--noconftest`` skips ``tests/conftest.py``, which configures JAX.)
 Inputs are made with numpy from a seed and go through the port's own
 pipeline; the tolerances are those ``chip_smoke.py`` holds the kernels to.
+Beside the kernels, the paths that use them are driven here at test size:
+the trainer, the CLI, the tools, the touch, vision, sensor and NeRF
+stacks, the viewer, the parallel steps and the graphed steps.
 """
 import dataclasses
 
@@ -16,7 +19,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import look_at_c2w, same_step
 from touchgs_torch.config import (DensifyConfig, ModelConfig, RasterizeConfig,
                                   TrainConfig)
 from touchgs_torch.data.cameras import Camera, Cameras
@@ -35,10 +37,27 @@ from touchgs_torch.train.trainer import (Trainer, grow_state,
                                          reset_opacity_state)
 from touchgs_torch.utils import telemetry
 
+from chip_smoke import TRAIN_PATH
+from test_torch_shade import look_at_c2w
+
 W, H = 96, 64           # 3x2 tiles of 32x32
 K_TILE, K_CHUNK = 512, 64
 N_TX, N_TILES = 3, 6
 N = 300
+# TRAIN_PATH: the kernels every training step launches once; the SO3xR3
+# step, whose camera takes a gradient, shades through the op chain and
+# launches the others (POSE_PATH)
+POSE_PATH = TRAIN_PATH[:5]
+
+
+def _zero_launches() -> None:
+    for k in cuda_build.launches:
+        cuda_build.launches[k] = 0
+
+
+def _want(**counts) -> dict:
+    """A whole launch dict: ``counts``, every other kernel 0."""
+    return {**dict.fromkeys(cuda_build.launches, 0), **counts}
 
 
 @pytest.fixture
@@ -254,15 +273,15 @@ def test_trainer_on_card_matches_cpu(cuda_device):
     steps = 3
     logs = {}
     for device in ("cpu", None):
-        for k in rc.launches:
-            rc.launches[k] = 0
+        _zero_launches()
         trainer = Trainer(scene, cfg, device=device)
         log = []
         trainer.run(steps, log_fn=log.append)
         logs[trainer.device.type] = log
-        counts = dict(rc.launches)
-        assert counts == {k: (steps if device is None and k != "slot_lists"
-                              else 0) for k in counts}, counts
+        counts = dict(cuda_build.launches)
+        want = _want(**(dict.fromkeys(TRAIN_PATH, steps)
+                        if device is None else {}))
+        assert counts == want, counts
     for key in ("loss", "psnr"):
         c = np.array([m[key] for m in logs["cpu"]])
         g = np.array([m[key] for m in logs["cuda"]])
@@ -287,8 +306,7 @@ def test_trainer_sh_degree_0_on_card(cuda_device):
     steps = 7
     logs = {}
     for device in ("cpu", "cuda"):
-        for k in rc.launches:
-            rc.launches[k] = 0
+        _zero_launches()
         trainer = Trainer(scene, cfg, device=device)
         assert tuple(trainer.state.params.sh_rest.shape) == (512, 0, 3)
         log = []
@@ -308,8 +326,9 @@ def test_trainer_sh_degree_0_on_card(cuda_device):
         assert int(p.num_alive) > N                 # the refine densified
         assert all(np.isfinite(m["loss"]) for m in log)
         if device == "cuda":
-            assert all(rc.launches[k] == steps for k in (
-                "slot_rows", "composite_fwd", "composite_bwd")), rc.launches
+            launched = cuda_build.launches
+            assert all(launched[k] == steps for k in (
+                "slot_rows", "composite_fwd", "composite_bwd")), launched
     for key in ("loss", "psnr"):
         np.testing.assert_allclose([m[key] for m in logs["cuda"][:3]],
                                    [m[key] for m in logs["cpu"][:3]],
@@ -472,7 +491,7 @@ def test_group_kernels_match_plain(cuda_device, th, tw, early_exit):
     nc = torch.as_tensor((counts_np + K_CHUNK - 1) // K_CHUNK, device=dev)
     tids = torch.arange(N_TILES, dtype=torch.int32, device=dev)
     args = (nc, tids, at, th, tw, K_TILE, K_CHUNK, N_TX, RasterizeConfig())
-    before = dict(rc.launches)
+    before = dict(cuda_build.launches)
     fwd = rc.forward_tiles(*args, early_exit=early_exit)
     fwd_p = plain.forward_tiles_plain(*args, early_exit=early_exit)
     torch.cuda.synchronize()
@@ -493,8 +512,8 @@ def test_group_kernels_match_plain(cuda_device, th, tw, early_exit):
     d = rc.backward_tiles(*bargs)
     d_p = plain.backward_tiles_plain(*bargs)
     torch.cuda.synchronize()
-    assert rc.launches["composite_fwd"] == before["composite_fwd"] + 1
-    assert rc.launches["composite_bwd"] == before["composite_bwd"] + 1
+    assert cuda_build.launches["composite_fwd"] == before["composite_fwd"] + 1
+    assert cuda_build.launches["composite_bwd"] == before["composite_bwd"] + 1
     assert float(d.abs().max()) > 0
     assert torch.equal(d, d_p), float((d - d_p).abs().max())
 
@@ -522,12 +541,12 @@ def test_tile_limits_raise_on_card(cuda_device):
     at = torch.zeros((1, K_TILE, plain.A), device=dev)
     one = torch.ones((1,), dtype=torch.int32, device=dev)
     cfg = RasterizeConfig()
-    before = dict(rc.launches)
+    before = dict(cuda_build.launches)
     with pytest.raises(ValueError, match=str(rc.MAX_TILE_PIXELS)):
         rc.forward_tiles(one, one * 0, at, 129, 128, K_TILE, K_CHUNK, 1, cfg)
     with pytest.raises(ValueError, match="K5"):
         anatomy.variant("full", one, one * 0, at, 12, 12, K_TILE, 128, 1, cfg)
-    assert rc.launches == before
+    assert cuda_build.launches == before
 
 
 @pytest.mark.cuda
@@ -538,7 +557,7 @@ def test_slot_rows_matches_plain(cuda_device, case, k_tile):
     ``attrs[gidx]``) on both outputs, and K1 without rows equal to the same
     lists; each call counts one launch under its own name."""
     args = _slot_case(case, k_tile, cuda_device)
-    before = dict(rc.launches)
+    before = dict(cuda_build.launches)
     gidx, rows = rc.slot_rows(*args)
     gidx_alone = rc.slot_lists(*args[1:])
     gidx_p, rows_p = plain.slot_rows_plain(*args)
@@ -547,8 +566,8 @@ def test_slot_rows_matches_plain(cuda_device, case, k_tile):
     assert torch.equal(rows, rows_p)
     assert rows.shape == (args[4], k_tile, plain.A)
     assert bool((gidx >= args[6]).any())          # dead slots were copied
-    assert rc.launches["slot_rows"] == before["slot_rows"] + 1
-    assert rc.launches["slot_lists"] == before["slot_lists"] + 1
+    assert cuda_build.launches["slot_rows"] == before["slot_rows"] + 1
+    assert cuda_build.launches["slot_lists"] == before["slot_lists"] + 1
 
 
 @pytest.mark.cuda
@@ -575,11 +594,11 @@ def test_rasterize_cuda_gradients_equal_gather_path(cuda_device,
         return [out.rgb, out.acc, out.depth,
                 *torch.autograd.grad(loss, (off, cols, op))]
 
-    before = dict(rc.launches)
+    before = dict(cuda_build.launches)
     new = render()
     torch.cuda.synchronize()
-    assert rc.launches["slot_rows"] == before["slot_rows"] + 1
-    assert rc.launches["slot_lists"] == before["slot_lists"]
+    assert cuda_build.launches["slot_rows"] == before["slot_rows"] + 1
+    assert cuda_build.launches["slot_lists"] == before["slot_lists"]
 
     def gather(attrs, sorted_gauss, starts, counts, n_tiles, k_tile, dead,
                tile0=0):
@@ -635,12 +654,11 @@ def test_wrappers_check_tensors_on_card(cuda_device):
                        device=cuda_device)[1:].view(1, 512, 16)
     bad["attrs: want a 16-byte aligned start"] = lambda: anatomy.bf16_probe(
         rows)
-    counters = (rc.launches, cuda_build.launches, anatomy.launches)
-    before = [dict(c) for c in counters]
+    before = dict(cuda_build.launches)
     for match, call in bad.items():
         with pytest.raises(ValueError, match=match):
             call()
-    assert before == [dict(c) for c in counters]
+    assert cuda_build.launches == before
 
 
 @pytest.mark.cuda
@@ -711,10 +729,10 @@ def test_ssim_kernels_match_plain(cuda_device, shape):
     from touchgs_torch.ops.ssim import ssim_bwd_plain, ssim_fwd_plain
 
     a, b = ssim_images(shape, cuda_device)
-    before = dict(rc.launches)
+    before = dict(cuda_build.launches)
     v, g = ssim_kernel_grad(a, b)
     torch.cuda.synchronize()
-    assert _counts_since(before, rc.launches) == {
+    assert _counts_since(before, cuda_build.launches) == {
         **dict.fromkeys(before, 0), "ssim_fwd": 1, "ssim_bwd": 1}
     pa, pb = a.permute(2, 0, 1), b.permute(2, 0, 1)
     pv, maps = ssim_fwd_plain(pa, pb, 0.01**2, 0.03**2, True)
@@ -796,14 +814,14 @@ def test_ssim_launches_and_img1_gradient(cuda_device):
                                         ssim_fwd_plain)
 
     a, b = ssim_images((3, 33, 97), cuda_device)
-    before = dict(rc.launches)
+    before = dict(cuda_build.launches)
     with torch.no_grad():
         ssim(a, b)
     leaf = b.clone().requires_grad_()
     v = ssim_cm(a.permute(2, 0, 1), leaf.permute(2, 0, 1))
     (g,) = torch.autograd.grad(v, leaf)
     torch.cuda.synchronize()
-    assert _counts_since(before, rc.launches) == {
+    assert _counts_since(before, cuda_build.launches) == {
         **dict.fromkeys(before, 0), "ssim_fwd": 3, "ssim_bwd": 1}
     pa, pb = a.permute(2, 0, 1), b.permute(2, 0, 1)
     _, maps = ssim_fwd_plain(pb, pa, 0.01**2, 0.03**2, True)
@@ -834,11 +852,11 @@ def test_ssim_wrappers_check_tensors_on_card(cuda_device):
         r"maps: want .* \(3, 3, 16, 24\)": lambda: ssim_bwd(a, b, maps[:2],
                                                              grad),
     }
-    before = dict(rc.launches)
+    before = dict(cuda_build.launches)
     for match, call in bad.items():
         with pytest.raises(ValueError, match=match):
             call()
-    assert rc.launches == before
+    assert cuda_build.launches == before
 
 
 # ---- the shade stage (csrc/shade.cu) ---------------------------------------
@@ -892,7 +910,7 @@ def test_shade_kernels_match_the_op_chain(cuda_device, state):
     groups, alive, cam, mcfg, active = shade_state(state, cuda_device)
     C = groups[0].shape[0]
     off = torch.zeros((C, 2), device=cuda_device)
-    before = dict(rc.launches)
+    before = dict(cuda_build.launches)
     fwd = sh.shade_fwd(groups, alive, off, cam, cam.w2c, mcfg, active, 512)
     ref = sh.shade_fwd_plain(groups, alive, off, cam, cam.w2c, mcfg, active,
                              512)
@@ -907,7 +925,7 @@ def test_shade_kernels_match_the_op_chain(cuda_device, state):
     assert torch.equal(valid, fwd[5])
     got = sh.shade_bwd(grad, groups, cam, cam.w2c, mcfg, active)
     torch.cuda.synchronize()
-    assert _counts_since(before, rc.launches) == {
+    assert _counts_since(before, cuda_build.launches) == {
         **dict.fromkeys(before, 0), "shade_fwd": 1, "shade_bwd": 1}
     assert_grads_close(got, want, valid, SHADE_GRAD_TOL)
 
@@ -925,7 +943,7 @@ def test_shade_function_launches_and_no_grad(cuda_device):
     leaves = [g.clone().requires_grad_(True) for g in groups]
     off = torch.zeros((groups[0].shape[0], 2), device=cuda_device,
                       requires_grad=True)
-    before = dict(rc.launches)
+    before = dict(cuda_build.launches)
     with torch.no_grad():
         sh.shade_packed(GaussianParams(*groups, alive), cam, mcfg, active)
     proj, table = sh.shade_packed(GaussianParams(*leaves, alive), cam, mcfg,
@@ -934,7 +952,7 @@ def test_shade_function_launches_and_no_grad(cuda_device):
         [proj.valid, proj.valid.new_zeros(512)])[:, None]
     grads = torch.autograd.grad(table, leaves + [off], cot)
     torch.cuda.synchronize()
-    assert _counts_since(before, rc.launches) == {
+    assert _counts_since(before, cuda_build.launches) == {
         **dict.fromkeys(before, 0), "shade_fwd": 2, "shade_bwd": 1}
     assert torch.equal(grads[-1], cot[:off.shape[0], :2])
 
@@ -1031,11 +1049,11 @@ def test_shade_wrappers_check_tensors_on_card(cuda_device):
         "16-byte aligned": lambda: sh.shade_bwd(
             table[1:].view(C + 512, 16), groups, cam, w2c, mcfg, 3),
     }
-    before = dict(rc.launches)
+    before = dict(cuda_build.launches)
     for match, call in bad.items():
         with pytest.raises(ValueError, match=match):
             call()
-    assert rc.launches == before
+    assert cuda_build.launches == before
 
 
 def _case_shape(case):
@@ -1093,11 +1111,11 @@ def test_anatomy_variant_matches_plain(cuda_device, case, mode):
     at, nc, tids = _tiles_on(cuda_device, case, 128)
     th, tw = _case_shape(case)
     args = (nc, tids, at, th, tw, K_TILE, 128, N_TX, RasterizeConfig())
-    before = anatomy.launches[f"anatomy_{mode}"]
+    before = cuda_build.launches[f"anatomy_{mode}"]
     out = anatomy.variant(mode, *args)
     ref = anatomy.variant_plain(mode, *args)
     torch.cuda.synchronize()
-    assert anatomy.launches[f"anatomy_{mode}"] == before + 1
+    assert cuda_build.launches[f"anatomy_{mode}"] == before + 1
     assert out.shape == (N_TILES, 2, th * tw)
     assert float(ref[:, 0].max()) > 0.1
     assert _tile_rel_err(out, ref) <= 3e-5
@@ -1133,11 +1151,11 @@ def test_bf16_probe_matches_plain(cuda_device, leg, n_tiles, spread):
     8-pixel group, so every block, warp, n-tile and lane of the mapping has
     pixels with α > 0, and a lane that summed another pixel's α fails."""
     at = probe_inputs(n_tiles=n_tiles, device=cuda_device, spread=spread)[leg]
-    before = anatomy.launches[f"bf16_probe_{leg}"]
+    before = cuda_build.launches[f"bf16_probe_{leg}"]
     out = anatomy.bf16_probe(at)
     ref = anatomy.bf16_probe_plain(at)
     torch.cuda.synchronize()
-    assert anatomy.launches[f"bf16_probe_{leg}"] == before + 1
+    assert cuda_build.launches[f"bf16_probe_{leg}"] == before + 1
     assert out.shape == (n_tiles, 1, 1024)
     if spread:
         assert float((ref.view(n_tiles, -1, 8) > 0).any(-1).float().mean()) \
@@ -1160,14 +1178,13 @@ def cli_run(tmp_path_factory):
 
     root = tmp_path_factory.mktemp("cli_scene")
     written = write_scene(root, views=6, size=320, seeds=2000, device="cuda")
-    for k in rc.launches:
-        rc.launches[k] = 0
+    _zero_launches()
     trainer, run = cli.main([
         "train", "--data", str(root), "--preset", "bunny_blender",
         "--max-steps", "20", "--output-dir",
         str(tmp_path_factory.mktemp("outputs"))])
     torch.cuda.synchronize()
-    return root, written, trainer, run, dict(rc.launches)
+    return root, written, trainer, run, dict(cuda_build.launches)
 
 
 @pytest.mark.cuda
@@ -1289,11 +1306,15 @@ def test_trunk_pipeline_on_card_matches_cpu(cuda_device):
 def test_capture_renders_on_card_match_cpu(cuda_device):
     """``render_pc_depth`` and ``render_mesh_depth`` of a sphere on the card
     against the CPU: validity flips at most 0.1% of pixels, depths within
-    1e-5 m where both hit."""
-    from touchgs_torch.data.meshing import (marching_tetrahedra,
+    1e-5 m where both hit; ``estimate_normals`` of the points that face
+    the camera on the card against the CPU: every pair within 1e-4 of
+    parallel."""
+    from touchgs_torch.data.meshing import (estimate_normals,
+                                            marching_tetrahedra,
                                             poisson_indicator,
                                             render_mesh_depth)
-    from touchgs_torch.data.pc_depth import render_pc_depth
+    from touchgs_torch.data.pc_depth import (render_pc_depth,
+                                             visibility_by_normals)
 
     v = np.random.default_rng(5).normal(size=(20000, 3)).astype(np.float32)
     pts = 0.5 * v / np.linalg.norm(v, axis=1, keepdims=True)
@@ -1313,6 +1334,12 @@ def test_capture_renders_on_card_match_cpu(cuda_device):
         both = (ref > 0) & (out > 0)
         assert ((ref > 0) != (out > 0)).mean() <= 1e-3 and both.mean() > 0.1
         assert np.abs(ref[both] - out[both]).max() <= 1e-5
+    eye = look_at_c2w((0.4, 0.3, 1.8))[:3, 3]
+    scan = pts[visibility_by_normals(pts, pts, eye)]
+    ref, out = (estimate_normals(torch.as_tensor(scan, device=d),
+                                 viewpoint=eye).cpu()
+                for d in ("cpu", cuda_device))
+    assert len(scan) > 1000 and float((ref * out).sum(1).min()) > 1 - 1e-4
 
 
 # ----------------------------------------------- sensor nets and NeRF --
@@ -1437,17 +1464,16 @@ def test_viewer_frame_on_card(cuda_device):
 
     trainer = Trainer(card_scene(), _card_cfg())
     with ViewerServer(trainer=trainer, port=0) as v:
-        for k in rc.launches:
-            rc.launches[k] = 0
+        _zero_launches()
         trainer.run(2, viewer=v)
         url = v.url + "render?theta=0.3&phi=0.2&radius=2.5&w=96&h=64&mode="
         pngs = {m: urllib.request.urlopen(url + m, timeout=60).read()
                 for m in ("rgb", "depth", "acc")}
         torch.cuda.synchronize()
-        assert rc.launches == {"slot_lists": 0, "slot_rows": 5,
-                               "composite_fwd": 5, "composite_bwd": 2,
-                               "ssim_fwd": 2, "ssim_bwd": 2,
-                               "shade_fwd": 5, "shade_bwd": 2}
+        assert cuda_build.launches == _want(slot_rows=5, composite_fwd=5,
+                                            composite_bwd=2, ssim_fwd=2,
+                                            ssim_bwd=2, shade_fwd=5,
+                                            shade_bwd=2)
     c2w = orbit_c2w(0.3, 0.2, 2.5)
     f = np.float32(0.8 * 96)
     cam = Camera(*(torch.tensor(np.float32(x), device=cuda_device)
@@ -1483,16 +1509,14 @@ def test_two_scene_step_on_card(cuda_device):
     params = [t.state.params for t in trainers]
     batches = [t._batch(s) for s, t in enumerate(trainers)]
     state = ms.make_multiscene_state(copy.deepcopy(params), cfg, opt)
-    for k in rc.launches:
-        rc.launches[k] = 0
+    _zero_launches()
     state, m = ms.make_multiscene_train_step(cfg, opt)(
         state, ms.stack_cameras([b[0] for b in batches]),
         *(torch.stack([b[i] for b in batches]) for i in (1, 2, 3)), 3)
     torch.cuda.synchronize()
-    assert rc.launches == {"slot_lists": 0, "slot_rows": 1,
-                           "composite_fwd": 1, "composite_bwd": 1,
-                           "ssim_fwd": 2, "ssim_bwd": 2, "shade_fwd": 0,
-                           "shade_bwd": 0}
+    assert cuda_build.launches == _want(slot_rows=1, composite_fwd=1,
+                                        composite_bwd=1, ssim_fwd=2,
+                                        ssim_bwd=2)
     step = make_train_step(cfg, opt)
     for s in range(2):
         p = copy.deepcopy(params[s])
@@ -1521,17 +1545,14 @@ def test_tile_shards_on_card(cuda_device):
         cols = torch.as_tensor(a["colors"], device=cuda_device
                                ).requires_grad_()
         op = torch.as_tensor(a["opac"], device=cuda_device).requires_grad_()
-        for k in rc.launches:
-            rc.launches[k] = 0
+        _zero_launches()
         out = rc.rasterize_cuda(proj, cols, op, W, H, RasterizeConfig(),
                                 tile_shards=shards)
         grads = torch.autograd.grad(out.rgb.square().mean(), (cols, op))
         torch.cuda.synchronize()
         n = max(shards, 1)
-        assert rc.launches == {"slot_lists": 0, "slot_rows": n,
-                               "composite_fwd": n, "composite_bwd": n,
-                               "ssim_fwd": 0, "ssim_bwd": 0, "shade_fwd": 0,
-                               "shade_bwd": 0}
+        assert cuda_build.launches == _want(slot_rows=n, composite_fwd=n,
+                                            composite_bwd=n)
         outs[shards] = (out, grads)
     (o0, g0), (o4, g4) = outs[0], outs[4]
     for k in ("rgb", "depth", "acc"):
@@ -1590,7 +1611,7 @@ def composite_slices(x: dict, shards: int) -> tuple:
 
 def assert_slices_equal_whole(sliced, whole) -> None:
     """K1's lists and rows and K3's gradients bit for bit; K2's rows within
-    ``chip_smoke.hold_kernels``'s tolerances, its T and chunk rows equal."""
+    rgb/acc 3e-5 and depth 3e-4, its T and chunk rows equal."""
     (gidx, rows, fwd, d), (gidx0, rows0, fwd0, d0) = sliced, whole
     assert torch.equal(gidx, gidx0) and torch.equal(rows, rows0)
     assert torch.equal(fwd[:, plain.ROW_DONE], fwd0[:, plain.ROW_DONE])
@@ -1610,14 +1631,12 @@ def test_packed_grid_slices_on_card(cuda_device, shards):
     within its tolerance.  This is what each ``model`` rank of a
     multi-scene mesh runs on its slice."""
     x = packed_scenes(cuda_device)
-    for k in rc.launches:
-        rc.launches[k] = 0
+    _zero_launches()
     sliced, whole = composite_slices(x, shards)
     torch.cuda.synchronize()
-    assert rc.launches == {"slot_lists": 0, "slot_rows": shards + 1,
-                           "composite_fwd": shards + 1,
-                           "composite_bwd": shards + 1, "ssim_fwd": 0,
-                           "ssim_bwd": 0, "shade_fwd": 0, "shade_bwd": 0}
+    assert cuda_build.launches == _want(slot_rows=shards + 1,
+                                        composite_fwd=shards + 1,
+                                        composite_bwd=shards + 1)
     assert float(whole[2][:, plain.ROW_DONE].max()) > 0
     assert_slices_equal_whole(sliced, whole)
 
@@ -1663,12 +1682,39 @@ def test_nccl_world_of_one(cuda_device):
                                    atol=1e-5)
 
 
+def same_step(name: str, loss, ref_loss, params, ref_params, optim) -> None:
+    """One step against another at the JAX package's 1-vs-N tolerances:
+    loss rtol 1e-4, parameters atol 1e-5 on the live slots.  An entry whose
+    gradient is float32 noise about 0 moves by a whole Adam step of its
+    sign (ROADMAP.md C32), so those are held as a share: at most 0.1% of a
+    group's entries, none more than two steps apart."""
+    from touchgs_torch.train.optim import PARAM_GROUPS
+
+    lrs = {"means": optim.means_lr_init, "quats": optim.quats_lr,
+           "log_scales": optim.scales_lr,
+           "logit_opacities": optim.opacities_lr,
+           "sh_dc": optim.features_dc_lr, "sh_rest": optim.features_rest_lr}
+    loss, ref_loss = float(loss), float(ref_loss)
+    assert abs(loss - ref_loss) <= 1e-4 * abs(ref_loss), (name, loss,
+                                                          ref_loss)
+    alive = ref_params.alive
+    assert torch.equal(params.alive, alive), f"{name}: alive masks differ"
+    for g in PARAM_GROUPS:
+        d = (getattr(params, g)[alive] - getattr(ref_params, g)[alive]).abs()
+        if d.numel() == 0:
+            continue
+        share = float((d > 1e-5).float().mean())
+        assert share <= 1e-3 and float(d.max()) <= 2 * lrs[g] + 1e-5, (
+            f"{name}: {g} {share:.4%} of the entries more than 1e-5 apart, "
+            f"at most {float(d.max()):.3e}")
+
+
 @pytest.mark.cuda
 def test_multiscene_mesh_world_of_one(cuda_device):
     """A 2-scene step on a data=1, model=1 mesh in a NCCL world of one (the
     gathers through NCCL) against the unsharded batch from the same state:
     one launch each of K1, K2 and K3, losses and PSNRs rtol 1e-5, live
-    parameters as ``chip_smoke.same_step`` holds them (atol 1e-5, an entry
+    parameters as ``same_step`` holds them (atol 1e-5, an entry
     moved by Adam on float32 noise held as a share, ROADMAP C32); then the
     refine and the opacity reset of the batch's stepped state, on the mesh
     and unsharded, bit for bit."""
@@ -1709,15 +1755,13 @@ def test_multiscene_mesh_world_of_one(cuda_device):
 
         stepped, refined = {}, {}
         for name, m in meshes.items():
-            for k in rc.launches:
-                rc.launches[k] = 0
+            _zero_launches()
             state, metrics = ms.make_multiscene_train_step(cfg, opt, m)(
                 placed(state0, m), *batch)
             torch.cuda.synchronize()
-            assert rc.launches == {"slot_lists": 0, "slot_rows": 1,
-                                   "composite_fwd": 1, "composite_bwd": 1,
-                                   "ssim_fwd": 2, "ssim_bwd": 2,
-                                   "shade_fwd": 0, "shade_bwd": 0}
+            assert cuda_build.launches == _want(slot_rows=1, composite_fwd=1,
+                                                composite_bwd=1, ssim_fwd=2,
+                                                ssim_bwd=2)
             stepped[name] = (whole(state, m), metrics)
         for name, m in meshes.items():
             state = ms.make_multiscene_refine_step(cfg, m)(
@@ -1749,20 +1793,45 @@ def test_multiscene_mesh_world_of_one(cuda_device):
 
 @pytest.mark.cuda
 def test_sim_capture_through_sensor_loop_on_card(cuda_device, tmp_path):
-    """``chip_smoke.py`` phase 4i (c): the port-built ``tgs_sync_capture
-    --sim 1`` takes 8 frames, replayed through ``SensorLoop`` with the
-    compact nets on the card: every frame processed, ``poses.csv`` with a
-    row each, the last frame's depth and wrench within 1e-4 of the CPU's
-    range.  Skips where the native layer cannot be built."""
-    from chip_smoke import native_capture
+    """The port-built ``tgs_sync_capture --sim 1`` takes 8 frames at 20 Hz
+    into ``capture/`` (``poses.csv`` with its header and a row each), and
+    ``imgs_cam0/`` replays through ``DirectorySource`` and ``SensorLoop``
+    with the compact nets on the card: every frame processed, the last
+    frame's depth and wrench within 1e-4 of the CPU's range.  Skips where
+    the native layer cannot be built."""
+    import subprocess
+
     from touchgs_torch.native import loader
+    from touchgs_torch.touch.sensor_loop import DirectorySource, SensorLoop
+    from touchgs_torch.touch.sensor_nets import DenseTactSensor
 
     missing = loader.missing_prerequisites()
     if missing:
         pytest.skip(f"the native layer needs {missing}")
-    out = native_capture(tmp_path, cuda_device, frames=8)
-    assert out["frames"] == 8
-    assert max(out["errors"].values()) <= 1e-4
+    frames, cap = 8, tmp_path / "capture"
+    r = subprocess.run(
+        [str(loader.tool("tgs_sync_capture")), "--out", str(cap), "--sim",
+         "1", "--auto-capture", str(frames), "--rate-hz", "20.0"],
+        stdin=subprocess.DEVNULL, capture_output=True, text=True, timeout=60)
+    assert r.returncode == 0, r.stderr[-300:]
+    rows = (cap / "poses.csv").read_text().splitlines()
+    assert rows[0] == "index,frame,x,y,z,qx,qy,qz,qw,stamp"
+    assert len(rows) == frames + 1
+    results = {}
+    sensor = DenseTactSensor(device=cuda_device)
+    loop = SensorLoop(sensor=sensor, rate_hz=30.0,
+                      on_frame=lambda i, res: results.__setitem__(i, res))
+    assert loop.run(DirectorySource(cap / "imgs_cam0")) == frames
+    assert sorted(results) == list(range(frames))
+    last = results[frames - 1]
+    cpu = DenseTactSensor(device="cpu")
+    ref_depth = cpu.depth(last["rect"])
+    ref_force = cpu.get_force(last["rect"])
+    depth = sensor.depth(last["rect"]).cpu()
+    assert float((depth - ref_depth).abs().max()) <= 1e-4 * float(
+        ref_depth.max() - ref_depth.min())
+    assert np.abs(last["force"] - ref_force).max() <= 1e-4 * np.ptp(
+        ref_force)
 
 
 @pytest.mark.cuda
@@ -1785,10 +1854,10 @@ def test_bench_census_on_card_matches_plain(cuda_device, k_tile):
     rcfg = dataclasses.replace(cfg.model.rasterize, k_tile=k_tile)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, rasterize=rcfg))
-    before = dict(rc.launches)
+    before = dict(cuda_build.launches)
     got = bench_torch.census(cfg, state, batch[0])
-    assert rc.launches["slot_rows"] == before["slot_rows"] + 1
-    assert rc.launches["composite_fwd"] == before["composite_fwd"] + 1
+    assert cuda_build.launches["slot_rows"] == before["slot_rows"] + 1
+    assert cuda_build.launches["composite_fwd"] == before["composite_fwd"] + 1
     bins = got["x"]["bins"]
     cpu_bins = TileBins(*(t.cpu() for t in bins[:3]), bins.n_tiles_x,
                         bins.n_tiles_y)
@@ -1821,28 +1890,23 @@ def test_graphed_step_matches_eager(cuda_device):
     trainer = _graph_trainer()
     step = trainer.train_step
     logs, counts = {}, {}
-    warm0 = dict(rc.launches_warmup)
+    warm0 = dict(cuda_build.launches_warmup)
     for name, fn in (("eager", step.__wrapped__), ("graph", step)):
         state = copy.deepcopy(trainer.state)
-        for k in rc.launches:
-            rc.launches[k] = 0
+        _zero_launches()
         logs[name] = []
         for i in range(5):
             state, m = fn(state, *trainer._batch(i % 2), 3)
             logs[name].append((float(m["loss"]), float(m["psnr"])))
         torch.cuda.synchronize()
-        counts[name] = dict(rc.launches)
+        counts[name] = dict(cuda_build.launches)
         assert state.step == 5
-    want = {"slot_lists": 0, "slot_rows": 5, "composite_fwd": 5,
-            "composite_bwd": 5, "ssim_fwd": 5, "ssim_bwd": 5,
-            "shade_fwd": 5, "shade_bwd": 5}
+    want = _want(**dict.fromkeys(TRAIN_PATH, 5))
     assert counts == {"eager": want, "graph": want}, counts
     assert trainer.events["capture"] == 1 and len(step.graphs) == 1
     w = graphs.WARMUP_ITERS
-    assert _counts_since(warm0, rc.launches_warmup) == {
-        "slot_lists": 0, "slot_rows": w, "composite_fwd": w,
-        "composite_bwd": w, "ssim_fwd": w, "ssim_bwd": w, "shade_fwd": w,
-        "shade_bwd": w}
+    assert _counts_since(warm0, cuda_build.launches_warmup) == _want(
+        **dict.fromkeys(TRAIN_PATH, w))
     assert np.isfinite(logs["graph"]).all()
     np.testing.assert_allclose(logs["graph"], logs["eager"], rtol=1e-3)
 
@@ -2019,14 +2083,13 @@ def test_failed_capture_raises(cuda_device, monkeypatch):
     monkeypatch.setattr(tr, "compute_losses", reading)
     step = make_train_step(trainer.cfg, trainer.optimizer)
     before = copy.deepcopy(trainer.state)
-    for k in rc.launches:
-        rc.launches[k] = 0
+    _zero_launches()
     with pytest.raises(RuntimeError):
         step(trainer.state, *trainer._batch(0), 3)
     torch.cuda.synchronize()
     assert trainer.state.step == before.step == 0
     assert not step.graphs and step.events["capture"] == 0
-    assert all(n == 0 for n in rc.launches.values()), rc.launches
+    assert not any(cuda_build.launches.values()), cuda_build.launches
     for a, b in zip(graphs.state_tensors(trainer.state),
                     graphs.state_tensors(before)):
         assert torch.equal(a, b)
@@ -2051,8 +2114,7 @@ def _graph_against_eager(step, state, batches: list, between=None) -> dict:
     out = {}
     for name, fn in (("eager", step.__wrapped__), ("graph", step)):
         st = copy.deepcopy(state)
-        for k in rc.launches:
-            rc.launches[k] = 0
+        _zero_launches()
         losses = []
         for i, batch in enumerate(batches):
             st, m = fn(st, *batch)
@@ -2060,7 +2122,7 @@ def _graph_against_eager(step, state, batches: list, between=None) -> dict:
             if between is not None:
                 st = between(i, st)
         torch.cuda.synchronize()
-        out[name] = (losses, st, dict(rc.launches))
+        out[name] = (losses, st, dict(cuda_build.launches))
     return out
 
 
@@ -2074,10 +2136,9 @@ def _check_graph_against_eager(out: dict, n_launches: int, n_losses: int,
     assert np.isfinite(gl).all()
     np.testing.assert_allclose(gl, el, rtol=1e-3)
     assert _same_tensors(graphs.state_tensors(gs), graphs.state_tensors(es))
-    want = {"slot_lists": 0, "slot_rows": n_launches,
-            "composite_fwd": n_launches, "composite_bwd": n_launches,
-            "ssim_fwd": n_losses, "ssim_bwd": n_losses,
-            "shade_fwd": n_shades, "shade_bwd": n_shades}
+    want = _want(slot_rows=n_launches, composite_fwd=n_launches,
+                 composite_bwd=n_launches, ssim_fwd=n_losses,
+                 ssim_bwd=n_losses, shade_fwd=n_shades, shade_bwd=n_shades)
     assert ec == want and gc == want, (ec, gc)
 
 
@@ -2232,13 +2293,551 @@ def test_failed_multiscene_capture_raises(cuda_device, monkeypatch):
     monkeypatch.setattr(ms, "compute_losses", reading)
     step = ms.make_multiscene_train_step(cfg, opt)
     before = copy.deepcopy(state)
-    for k in rc.launches:
-        rc.launches[k] = 0
+    _zero_launches()
     with pytest.raises(RuntimeError):
         step(state, *batches[0])
     torch.cuda.synchronize()
     assert state.step == before.step == 0
     assert not step.graphs and step.events["capture"] == 0
-    assert all(n == 0 for n in rc.launches.values()), rc.launches
+    assert not any(cuda_build.launches.values()), cuda_build.launches
     assert _same_tensors(graphs.state_tensors(state),
                          graphs.state_tensors(before))
+
+
+# ---- the trainer's paths, the tools and the sensor stack on the card -----
+
+@pytest.mark.cuda
+def test_scan_path_on_card(cuda_device):
+    """The scan path (the default ``RasterizeConfig``, torch ops, no kernel
+    of its own) on the card: the scene's forward within rgb/acc 1e-4 and
+    depth 1e-3 of the dense oracle and of the tile kernels without their
+    exit (the same lists); ``Trainer.run`` with the default config
+    launches no tile or shade kernel, the SSIM pair once a step, and
+    reports no lossy tiles."""
+    from touchgs_torch.ops.rasterize_tiled import rasterize_tiled
+
+    a = scene_arrays()
+    proj = _project(a, cuda_device)
+    cols, op = (torch.as_tensor(a[k], device=cuda_device)
+                for k in ("colors", "opac"))
+    cfg = RasterizeConfig()
+    assert not cfg.use_pallas
+    with torch.no_grad():
+        out = rasterize_tiled(proj, cols, op, W, H, cfg, k_tile=K_TILE)
+        refs = {"dense": rasterize_dense(proj, cols, op, W, H, cfg),
+                "tile kernels": rc.rasterize_cuda(
+                    proj, cols, op, W, H, cfg, k_tile=K_TILE,
+                    early_exit=False)}
+    assert float(out.acc.max()) > 0.5
+    for ref_name, ref in refs.items():
+        for name, tol in (("rgb", 1e-4), ("acc", 1e-4), ("depth", 1e-3)):
+            err = float((getattr(out, name) - getattr(ref, name)).abs().max())
+            assert err <= tol, (ref_name, name, err)
+
+    steps = 3
+    trainer = Trainer(card_scene(), TrainConfig(
+        model=ModelConfig(max_gaussians=512, sh_degree=3), log_every=1))
+    assert trainer.device.type == "cuda"
+    _zero_launches()
+    trainer.run(steps)
+    torch.cuda.synchronize()
+    assert cuda_build.launches == _want(ssim_fwd=steps, ssim_bwd=steps)
+    assert all(np.isfinite(m["loss"]) and "lossy_tiles" not in m
+               for m in trainer.history)
+
+
+@pytest.mark.cuda
+def test_scale_demo_on_card(cuda_device, tmp_path, monkeypatch):
+    """``train_scale_demo.main`` at 800x800 with its 100k GT Gaussians on a
+    short schedule: 2048 seeds start the capacity at 4096, refines from
+    step 300 to 620 densify and prune, the opacities reset at 450, and a
+    refine grows the capacity when more than 60% of it is alive.  The
+    trainer counts at least two refines, a reset and a growth; every
+    kernel of the step launches; the GT renders are lossless and the
+    eval metrics and the census finite."""
+    from touchgs_torch.tools import train_scale_demo
+
+    monkeypatch.chdir(tmp_path)
+    _zero_launches()
+    s = train_scale_demo.main([
+        "--steps", "720", "--polish", "100", "--seed-points", "2048",
+        "--reset-opacity-every", "450", "--views", "8", "--render-dir", ""])
+    torch.cuda.synchronize()
+    ev = s["events"]
+    assert ev["refine"] >= 2 and ev["reset_opacity"] >= 1 and ev["grow"] >= 1
+    assert all(cuda_build.launches[k] >= 1 for k in TRAIN_PATH), (
+        cuda_build.launches)
+    assert all(np.isfinite(v) for v in s["eval"].values())
+    assert np.isfinite(s["eval_depth_mae_m"])
+    assert all(np.isfinite(v) for row in s["lossy_census"]["train"]
+               for v in row)
+    gt = s["lossy_census"]["gt_views"]
+    assert gt and gt == [0] * len(gt)
+
+
+@pytest.mark.cuda
+def test_touch_maps_on_card_match_cpu(cuda_device):
+    """The touch modules on the card against the CPU on the same inputs:
+    ``fuse_view`` on a 400x400 view with an injected permutation (atol
+    1e-5); the GPIS fitted on each from 512 contacts on the 0.5 m sphere
+    (posterior mean within 2e-4 and variance within 1e-3 over 4096
+    queries, the fp32 Cholesky's spread, ROADMAP C14); ``render_depth_var``
+    of the CPU's fit at 96x96 on each (depth within 1e-4 m where both are
+    valid, validity flips at most 0.1%).  Catches TF32 and cuSOLVER
+    drift."""
+    from touchgs_torch.tools.train_scale_demo import look_at_camera
+    from touchgs_torch.touch.fusion import fuse_view
+    from touchgs_torch.touch.gpis import (fit_gpis, gpis_from_numpy,
+                                          posterior, render_depth_var)
+
+    cpu, n = torch.device("cpu"), 400
+    rng = np.random.default_rng(0)
+    vision = rng.uniform(0.5, 3.0, (n, n))
+    touch = np.zeros((n, n))
+    touch[100:260, 150:300] = rng.uniform(0.8, 1.2, (160, 150))
+    sig = np.where(touch > 0, rng.uniform(1e-4, 0.5, (n, n)), 0.0)
+    grounded = 1.5 * vision + 0.3 + rng.normal(0, 0.01, (n, n))
+    perm = torch.randperm(n * n, generator=torch.Generator().manual_seed(1))
+    maps = [a.astype(np.float32) for a in (grounded, touch, vision, sig)]
+    ref, out = (fuse_view(None, *(torch.as_tensor(a, device=d)
+                                  for a in maps), perm=perm)
+                for d in (cpu, cuda_device))
+    for k in ref._fields:
+        err = float((getattr(out, k).cpu() - getattr(ref, k)).abs().max())
+        assert err <= 1e-5, (k, err)
+
+    v = np.random.default_rng(3).normal(size=(512, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    g_cpu, g_dev = (fit_gpis((0.5 * v).astype(np.float32),
+                             v.astype(np.float32), lengthscale=0.18,
+                             off_surface_eps=0.05, device=d)
+                    for d in (cpu, cuda_device))
+    q = torch.as_tensor(np.random.default_rng(4).uniform(
+        -0.7, 0.7, (4096, 3)).astype(np.float32))
+    m_c, v_c = posterior(g_cpu, q)
+    m_d, v_d = posterior(g_dev, q.to(cuda_device))
+    assert float((m_d.cpu() - m_c).abs().max()) <= 2e-4
+    assert float((v_d.cpu() - v_c).abs().max()) <= 1e-3
+
+    m, res = 96, []
+    for d in (cpu, cuda_device):
+        g = gpis_from_numpy(g_cpu.X, g_cpu.alpha, g_cpu.L,
+                            g_cpu.lengthscale, g_cpu.signal_var,
+                            g_cpu.noise, off_eps=g_cpu.off_eps, device=d)
+        cam = look_at_camera(eye=(2.2, 0.0, 0.8), target=(0, 0, -0.1),
+                             width=m, height=m, focal=0.9 * m, device=d)
+        dep, _ = render_depth_var(g, cam, near=1.3, far=2.8, n_samples=96,
+                                  pixel_chunk=1024, support_var_frac=0.15)
+        res.append(dep.cpu().numpy())
+    c, g = res
+    both = ~np.isnan(c) & ~np.isnan(g)
+    assert both.sum() > 100 and np.abs(g - c)[both].max() <= 1e-4
+    assert (np.isnan(c) != np.isnan(g)).mean() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lossless", [False, True], ids=["train", "gt"])
+def test_hard_scene_view_kernels_match_plain(cuda_device, lossless):
+    """K1 with rows, K2 and K3 against their plain versions on the hard
+    scene's own tiles (its GT Gaussians through its first ring camera at
+    400x400: 13x13 tiles, the last row and column partial and holding
+    splats) at the training path's k_tile and the GT renders' deep one
+    (``lossless_gt_raster``): K1's lists and rows equal, K2's chunks_done
+    and T row equal with rgb/acc within 3e-5 and depth within 3e-4, K3
+    bit-exact on a seeded random cotangent."""
+    from touchgs_torch.tools.train_hard_scene import N_SPHERE
+    from touchgs_torch.tools.train_scale_demo import (build_gt_gaussians,
+                                                      lossless_gt_raster,
+                                                      ring_cameras)
+
+    dev, size = cuda_device, 400
+    means, quats, scales, colors, opac = (
+        torch.as_tensor(a, device=dev) for a in build_gt_gaussians())
+    colors[:N_SPHERE] = torch.tensor((0.82, 0.82, 0.85), device=dev)
+    cam = ring_cameras(8, size, size, device=dev)[0]
+    cfg = (lossless_gt_raster(True) if lossless
+           else RasterizeConfig(use_pallas=True))
+    with torch.no_grad():
+        proj = project_gaussians(means, quats, scales, cam.w2c, cam.fx,
+                                 cam.fy, cam.cx, cam.cy, size, size, cfg,
+                                 opacities=opac)
+        bins = bin_gaussians(proj, size, size, cfg)
+        attrs = rc._pack_attrs(proj, colors, opac)
+    n_tx, k_tile = bins.n_tiles_x, cfg.k_tile
+    n_tiles = n_tx * bins.n_tiles_y
+    counts = bins.tile_counts.reshape(-1, n_tx)
+    assert n_tx * cfg.tile_w > size and int(counts[:, -1].sum()) > 0
+    assert int(counts[-1].sum()) > 0
+    capped = torch.clamp(bins.tile_counts, max=k_tile).contiguous()
+    args = (attrs, bins.sorted_gauss, bins.tile_starts, capped, n_tiles,
+            k_tile, means.shape[0])
+    (gidx, rows), (gidx_p, rows_p) = (rc.slot_rows(*args),
+                                      plain.slot_rows_plain(*args))
+    torch.cuda.synchronize()
+    assert torch.equal(gidx, gidx_p) and torch.equal(rows, rows_p)
+    nc = ((capped + cfg.k_chunk - 1) // cfg.k_chunk).to(torch.int32)
+    tids = torch.arange(n_tiles, dtype=torch.int32, device=dev)
+    geom = (cfg.tile_h, cfg.tile_w, k_tile, cfg.k_chunk, n_tx, cfg)
+    fwd = rc.forward_tiles(nc, tids, rows, *geom)
+    fwd_p = plain.forward_tiles_plain(nc, tids, rows, *geom)
+    torch.cuda.synchronize()
+    assert torch.equal(fwd[:, plain.ROW_DONE], fwd_p[:, plain.ROW_DONE])
+    assert torch.equal(fwd[:, plain.ROW_T], fwd_p[:, plain.ROW_T])
+    torch.testing.assert_close(fwd[:, 3], fwd_p[:, 3], atol=3e-4, rtol=0)
+    torch.testing.assert_close(fwd[:, [0, 1, 2, 4]], fwd_p[:, [0, 1, 2, 4]],
+                               atol=3e-5, rtol=0)
+    done = fwd[:, plain.ROW_DONE, 0].to(torch.int32).contiguous()
+    g = torch.randn(fwd.shape, device=dev,
+                    generator=torch.Generator(dev).manual_seed(0))
+    d = rc.backward_tiles(done, tids, rows, fwd, g, *geom)
+    d_p = plain.backward_tiles_plain(done, tids, rows, fwd, g, *geom)
+    torch.cuda.synchronize()
+    assert float(d.abs().max()) > 0 and torch.equal(d, d_p)
+
+
+@pytest.mark.cuda
+def test_hard_scene_on_card(cuda_device, tmp_path, monkeypatch):
+    """``train_hard_scene.main`` on a short schedule (8 views at 400x400,
+    whose tiles end partial, 30 touch patches, 600 steps, SH degree 0):
+    every kernel of the step launches, the GT renders are lossless, every
+    metric is finite, touch covers part of the sphere, and the touch arm's
+    object depth MAE is below the vision arm's."""
+    from touchgs_torch.tools import train_hard_scene
+
+    monkeypatch.chdir(tmp_path)
+    _zero_launches()
+    s = train_hard_scene.main([
+        "--views", "8", "--size", "400", "--touch-patches", "30", "--steps",
+        "600", "--sh-degree", "0", "--out", str(tmp_path / "hs.md")])
+    torch.cuda.synchronize()
+    assert all(cuda_build.launches[k] >= 1 for k in TRAIN_PATH), (
+        cuda_build.launches)
+    gt = s["gt_lossy_tiles"]
+    assert gt and gt == [0] * len(gt)
+    a, b = s["arms"]["touchgs"], s["arms"]["vision_only"]
+    for row in (a, b):
+        for k in ("eval_psnr", "depth_mae_cm", "object_depth_mae_cm",
+                  "iters_per_sec"):
+            assert np.isfinite(row[k]), (k, row)
+    assert 0 < s["touch_coverage"] < 1
+    assert a["object_depth_mae_cm"] < b["object_depth_mae_cm"], (a, b)
+
+
+@pytest.mark.cuda
+def test_cli_resume_eval_render_export_and_pose_on_card(cli_run, tmp_path):
+    """After ``cli_run``'s 20 steps: ``train --load-run`` resumes at step 20
+    and ends at 30 with its checkpoint; ``eval``, ``render`` and
+    ``export-splat`` of the resumed run write their files with finite
+    metrics; ``train --camera-optimizer SO3xR3`` launches K1 with rows, K2,
+    K3 and the SSIM pair every step and the shade kernels' backward never
+    (the camera takes a gradient, so ``render`` runs the op chain), its
+    loss finite and its pose deltas moved."""
+    from touchgs_torch import cli
+    from touchgs_torch.data.png import read_rgb
+
+    root, _, trainer, run, _ = cli_run
+    base = ["--data", str(root), "--preset", "bunny_blender"]
+    resumed, run_b = cli.main([
+        "train", "--max-steps", "30", "--load-run", str(run),
+        "--output-dir", str(tmp_path / "b")] + base)
+    torch.cuda.synchronize()
+    assert min(m["step"] for m in resumed.history) >= 20
+    assert resumed.state.step == 30
+    assert (run_b / "checkpoints" / "30.pt").exists()
+    load = base + ["--load-run", str(run_b)]
+    results = cli.main(["eval"] + load)
+    assert all(np.isfinite(results[k]) for k in ("psnr", "ssim", "lpips"))
+    assert (run_b / "eval.json").exists()
+    rgbs = sorted(cli.main(["render"] + load).glob("*_rgb.png"))
+    assert len(rgbs) == len(trainer.scene.i_eval)
+    assert read_rgb(rgbs[0]).shape == trainer.scene.images.shape[1:]
+    exported, ply = cli.main(["export-splat"] + load)
+    assert ply.stat().st_size > 0
+
+    steps = 10
+    _zero_launches()
+    posed, _ = cli.main([
+        "train", "--max-steps", str(steps), "--camera-optimizer", "SO3xR3",
+        "--output-dir", str(tmp_path / "c")] + base)
+    torch.cuda.synchronize()
+    counts = dict(cuda_build.launches)
+    assert all(counts[k] >= steps for k in POSE_PATH), counts
+    assert counts["shade_bwd"] == 0, counts
+    pd = posed.state.pose_deltas
+    assert all(np.isfinite(m["loss"]) for m in posed.history)
+    assert bool(torch.isfinite(pd).all()) and float(pd.abs().max()) > 0
+
+
+@pytest.mark.cuda
+def test_cli_pipeline_on_card(cuda_device, tmp_path):
+    """``cli pipeline`` on a capture directory (a written scene without the
+    depth paths and touch seeds that stages 5 and 6 write, its GT depths as
+    the aligning ``sparse_depths/``, touch points on the GT sphere nearest
+    the first view): every stage runs, ``zoe_depth/`` holds a positive
+    depth map a view, fusion, seeds and the depth paths are written, the
+    eval metrics are finite, and every kernel of the step launches at
+    least once a step."""
+    import json
+    import shutil
+
+    from touchgs_torch import cli
+    from touchgs_torch.data.png import read_png
+    from touchgs_torch.tools.write_scene import write_scene
+
+    views, size, steps = 4, 400, 10
+    root = tmp_path / "capture"
+    w = write_scene(root, views, size, 2000, cuda_device)
+    meta = json.loads((root / "transforms.json").read_text())
+    for f in meta["frames"]:
+        del f["depth_file_path"], f["uncertainty_file_path"]
+    (root / "transforms.json").write_text(json.dumps(meta, indent=2))
+    shutil.rmtree(root / "uncertainty")
+    (root / "depth").rename(root / "sparse_depths")
+    for name in ("points_touch.npy", "points_colors.npy"):
+        (root / name).unlink()
+    pts = w["points"]
+    sphere = pts[np.abs(np.linalg.norm(pts, axis=1) - 0.5) < 0.03]
+    eye = w["c2w"][0, :3, 3]
+    near = np.argsort(np.linalg.norm(sphere - eye, axis=1))[:256]
+    np.save(root / "touch_points.npy", sphere[near])
+
+    _zero_launches()
+    results = cli.main([
+        "pipeline", "--data", str(root), "--max-steps", str(steps),
+        "--touch-points", str(root / "touch_points.npy"), "--output-dir",
+        str(tmp_path / "outputs"), "--preset", "bunny_blender",
+        "--max-gaussians", "16384"])
+    torch.cuda.synchronize()
+    counts = dict(cuda_build.launches)
+    zoe = sorted((root / "zoe_depth").iterdir())
+    mm = np.stack([read_png(f) for f in zoe])
+    assert len(zoe) == views and mm.shape[1:] == (size, size)
+    assert int(mm.min()) > 0
+    meta = json.loads((root / "transforms.json").read_text())
+    assert len(list((root / "fused_output_dir").iterdir())) == views
+    assert (root / "points_touch.npy").exists()
+    assert meta["frames"][0]["depth_file_path"].startswith(
+        "fused_output_dir/")
+    assert all(np.isfinite(results[k]) for k in ("psnr", "ssim", "lpips"))
+    assert all(counts[k] >= steps for k in TRAIN_PATH), counts
+
+
+@pytest.mark.cuda
+def test_trainer_graphed_matches_eager_through_the_schedule(
+        cuda_device, tmp_path, monkeypatch):
+    """``Trainer.run`` for 300 steps on a written 12-view 800x800 scene,
+    graphed and then eager (``make_train_step`` giving its
+    ``__wrapped__``) from the same seeds, on a schedule that refines at 50,
+    100, ..., 250, resets the opacities at 200, raises the active SH degree
+    at 100 and 200, and starts at k_tile 128 so that the truncation guard
+    escalates.  Each run refines at least twice, resets, raises the SH
+    degree and escalates, and launches every kernel of the step exactly
+    once a step; the graphed run captures at most once per SH degree,
+    escalation and growth and once more, the eager run never; the mean
+    eval PSNR (lossless renders) within 0.1 dB and the alive counts within
+    1%."""
+    from touchgs_torch.config import SCENE_PRESETS
+    from touchgs_torch.data.scene import load_scene
+    from touchgs_torch.tools.write_scene import write_scene
+    from touchgs_torch.train import trainer as tr
+
+    write_scene(tmp_path, 12, 800, 30_000, cuda_device)
+    scene = load_scene(tmp_path, train_split_fraction=SCENE_PRESETS[
+        "bunny_blender"].train_split_fraction)
+    steps = 300
+    cfg = TrainConfig(
+        model=ModelConfig(max_gaussians=131_072, sh_degree=3,
+                          rasterize=RasterizeConfig(use_pallas=True,
+                                                    k_tile=128)),
+        depth=SCENE_PRESETS["bunny_blender"].depth,
+        densify=DensifyConfig(warmup_steps=50, refine_every=50,
+                              reset_opacity_every=200),
+        sh_degree_interval=100, log_every=10, view_cache_bytes=1 << 30)
+    views = scene.i_eval if len(scene.i_eval) else scene.i_train
+    graphed = tr.make_train_step
+
+    def plain(*args, **kw):
+        step = graphed(*args, **kw)
+        return getattr(step, "__wrapped__", step)
+
+    runs = {}
+    for name in ("graph", "eager"):
+        if name == "eager":
+            monkeypatch.setattr(tr, "make_train_step", plain)
+        trainer = Trainer(scene, cfg)
+        _zero_launches()
+        trainer.run(steps)
+        torch.cuda.synchronize()
+        counts = dict(cuda_build.launches)
+        psnrs = []
+        for v in views:
+            out = trainer.render_view(int(v))
+            mse = float(((out.rgb - torch.as_tensor(
+                scene.images[v], device=out.rgb.device)) ** 2).mean())
+            psnrs.append(-10.0 * np.log10(max(mse, 1e-10)))
+        runs[name] = dict(
+            psnr=float(np.mean(psnrs)),
+            alive=int(trainer.state.params.num_alive),
+            events=dict(trainer.events), counts=counts,
+            escalations=[m["k_tile_escalated_to"] for m in trainer.history
+                         if "k_tile_escalated_to" in m],
+            sh=trainer.active_sh_degree(steps - 1))
+        del trainer
+        torch.cuda.empty_cache()
+    want = _want(**dict.fromkeys(TRAIN_PATH, steps))
+    for name, r in runs.items():
+        ev = r["events"]
+        assert ev["refine"] >= 2 and ev["reset_opacity"] >= 1, (name, ev)
+        assert r["sh"] > 0 and r["escalations"], (name, r)
+        assert r["counts"] == want, (name, r["counts"])
+    g, e = runs["graph"], runs["eager"]
+    bound = g["sh"] + 1 + len(g["escalations"]) + g["events"]["grow"] + 1
+    assert g["events"]["capture"] <= bound, (g["events"], bound)
+    assert e["events"]["capture"] == 0
+    assert abs(g["psnr"] - e["psnr"]) <= 0.1, (g["psnr"], e["psnr"])
+    assert abs(g["alive"] - e["alive"]) <= 0.01 * e["alive"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tool", [
+    "exp_tile_size", "exp_kernels", "exp_kernels2", "exp_scatter",
+    "exp_scatter2", "exp_tail", "exp_tail2", "exp_tail3"])
+def test_experiment_tool_on_card(cuda_device, tool, tmp_path, monkeypatch):
+    """Each experiment tool of ``touchgs_torch/tools/`` runs on the card at
+    3 calls a row and exits 0 (``exp_tile_size`` exits 1 where K2 or K3
+    differs from its plain version at one of its geometries; a row that
+    prints FAILED is a finding, not a failure)."""
+    import importlib
+
+    monkeypatch.chdir(tmp_path)
+    mod = importlib.import_module(f"touchgs_torch.tools.{tool}")
+    assert mod.main(["--iters", "3"], out={}) == 0
+
+
+# each sensor net's train step and its rate: the JAX package's own
+# train-step tests' rates, 2e-4 for the depth net, 1e-3 for the force net
+SENSOR_LR = {"densetact": 2e-4, "silog": 2e-4, "force": 1e-3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(SENSOR_LR))
+def test_sensor_train_step_on_card_matches_cpu(cuda_device, kind):
+    """One step of a compact sensor net's train step (flax's init from a
+    seeded generator, Adam at SENSOR_LR) on the card against one on the
+    CPU from the same parameters and batch: the loss within rtol 1e-4, the
+    parameters after within 3·lr everywhere and within 1e-5 at 95% of them
+    (Adam turns float32 noise in near-zero gradients into steps of up to
+    lr; ``tests/test_torch_sensor.py`` measured at most 2.5% on the
+    CPU)."""
+    from touchgs_torch.touch import sensor_nets as sn
+    from touchgs_torch.touch import sensor_train as st
+
+    rng = np.random.default_rng(13)
+    images = rng.integers(0, 256, (2, 32, 32, 3)).astype(np.float32)
+    target = (rng.uniform(0, 1, (2, 6)) if kind == "force" else
+              rng.uniform(1.0, 255.0, (2, 32, 32))).astype(np.float32)
+    nets, losses = {}, {}
+    for d in ("cpu", cuda_device):
+        net = sn.flax_init_(sn.ForceNet() if kind == "force"
+                            else sn.TouchDepthNet(),
+                            torch.Generator().manual_seed(14)).to(d)
+        opt = torch.optim.Adam(net.parameters(), lr=SENSOR_LR[kind],
+                               eps=1e-8)
+        step = (st.make_force_train_step(net, opt) if kind == "force" else
+                st.make_depth_train_step(net, opt, loss=kind))
+        losses[str(d)] = float(step(torch.as_tensor(images, device=d),
+                                    torch.as_tensor(target, device=d))["loss"])
+        nets[str(d)] = net
+    card, cpu = losses[str(cuda_device)], losses["cpu"]
+    assert np.isfinite(card) and abs(card - cpu) <= 1e-4 * abs(cpu)
+    with torch.no_grad():
+        diff = torch.cat([(p.cpu() - q).abs().flatten() for p, q in zip(
+            nets[str(cuda_device)].parameters(), nets["cpu"].parameters())])
+    assert float((diff > 1e-5).float().mean()) <= 0.05
+    assert float(diff.max()) <= 3 * SENSOR_LR[kind]
+
+
+@pytest.mark.cuda
+def test_sensor_loop_on_card(cuda_device, tmp_path):
+    """``SensorLoop`` with the compact nets on the card over three synthetic
+    64x64 frames: every frame processed, a uint8 depth PNG a frame and a
+    force.csv row a frame under its header."""
+    from touchgs_torch.data.png import read_png
+    from touchgs_torch.touch.sensor_loop import SensorLoop, SyntheticSource
+    from touchgs_torch.touch.sensor_nets import DenseTactSensor
+
+    loop = SensorLoop(sensor=DenseTactSensor(input_size=16,
+                                             device=cuda_device),
+                      out_dir=tmp_path, rate_hz=1000.0)
+    assert loop.run(SyntheticSource(size=64, n_frames=3)) == 3
+    depths = sorted((tmp_path / "depth").iterdir())
+    assert len(depths) == 3
+    d = read_png(depths[-1])
+    assert d.dtype == np.uint8 and d.shape == (64, 64)
+    rows = (tmp_path / "force.csv").read_text().splitlines()
+    assert rows[0] == "index,fx,fy,fz,tx,ty,tz" and len(rows) == 4
+
+
+@pytest.mark.cuda
+def test_nerf_trains_on_card(cuda_device):
+    """``NerfTrainer`` on the card at a small config: 30 DS-NeRF steps whose
+    loss falls, 10 URF steps with σ decay (finite, σ decayed), and a
+    finite ``render_view`` of the scene's shape."""
+    from touchgs_torch.models import nerf
+
+    cfg = nerf.NerfConfig(num_levels=4, hash_size=2**12, base_res=4,
+                          max_res=64, mlp_width=32, num_coarse=24,
+                          num_fine=24, rays_per_batch=512, near=0.5, far=4.0)
+    scene = card_scene(3)
+    trainer = nerf.NerfTrainer(scene, cfg, seed=0, device=cuda_device)
+    log = []
+    trainer.run(30, log_every=1, log_fn=log.append)
+    assert all(np.isfinite(m["loss"]) for m in log)
+    assert log[-1]["loss"] < log[0]["loss"], (log[0], log[-1])
+    img = trainer.render_view(0)
+    assert img.shape == scene.images[0].shape and np.isfinite(img).all()
+
+    urf = dataclasses.replace(cfg, depth_loss_type=nerf.NerfDepthLossType.URF,
+                              should_decay_sigma=True)
+    trainer = nerf.NerfTrainer(scene, urf, seed=0, device=cuda_device)
+    sigma = float(trainer.sigma)
+    log = []
+    trainer.run(10, log_every=1, log_fn=log.append)
+    assert all(np.isfinite(m["loss"]) for m in log)
+    assert float(trainer.sigma) < sigma
+
+
+@pytest.mark.cuda
+def test_bench_torch_on_card(cuda_device):
+    """``bench_torch.py`` in a process of its own on the card at 64x64 (500
+    Gaussians in 1024, 2 warm-up and 4 timed steps in windows of 2): exit
+    0, one JSON line with a rate, no note and the card named; its launch
+    line shows K4 once and every kernel of the step at least once a step;
+    its census shows no lossy tile."""
+    import json
+    import re
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = ("import sys, bench_torch as b\n"
+            "b.WIDTH = b.HEIGHT = 64; b.N_GAUSSIANS = 500; b.CAPACITY = 1024\n"
+            "b.WARMUP_STEPS, b.TIMED_STEPS, b.CHUNK = 2, 4, 2\n"
+            "sys.exit(b.main([]))\n")
+    r = subprocess.run([sys.executable, "-c", code],
+                       cwd=Path(__file__).resolve().parents[1],
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    lines = r.stdout.splitlines()
+    assert len(lines) == 1, r.stdout
+    h = json.loads(lines[0])
+    assert h["value"] > 0 and "note" not in h
+    assert h["device"] == torch.cuda.get_device_name(0)
+    last = r.stderr.strip().splitlines()[-1]
+    assert last.startswith("launches: ")
+    counts = json.loads(last[len("launches: "):])["steps"]
+    assert counts["compile_smoke"] == 1, counts
+    assert all(counts[k] >= 6 for k in TRAIN_PATH), counts
+    m = re.search(r"lossy-truncated tiles \(capped & unsaturated\): "
+                  r"(\d+)/(\d+)", r.stderr)
+    assert m is not None and int(m.group(1)) == 0, r.stderr[-2000:]

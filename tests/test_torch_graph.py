@@ -6,8 +6,8 @@ host data), the state keeps its tensors through steps, refine and the
 opacity reset (the graph reads and writes them in place), and that
 in-place path still trains as the JAX package's jitted, donated
 ``make_train_step``, ``make_refine_step`` and ``make_reset_opacity_step``.
-The capture itself is held on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py --graph``).  One scene of 3 views at 64x64, 400 seeds,
+The capture itself is held on the card (``tests/test_torch_cuda.py``).
+One scene of 3 views at 64x64, 400 seeds,
 capacity 1024, SH degree 1, the tile kernels' path (their plain versions
 here; JAX's Pallas kernels in interpret mode).
 """

@@ -8,8 +8,8 @@ single-scene step: the step's device work asks the host for nothing, the
 multi-scene state keeps its tensors through steps, a refine and the
 opacity reset, which ``make_*`` returns a ``GraphedStep``, and that the
 in-place paths still train as the JAX package's jitted, donated steps.
-The captures themselves are held on the card (``tests/test_torch_cuda.py``,
-``chip_smoke.py --parallel`` and ``--graph``).  Sizes as in
+The captures themselves are held on the card
+(``tests/test_torch_cuda.py``).  Sizes as in
 ``tests/test_torch_graph.py``: 3 views at 64x64, capacity 1024, SH degree
 1, the tile kernels' path (their plain versions here; JAX's Pallas kernels
 in interpret mode); the multi-scene parity at

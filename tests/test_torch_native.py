@@ -29,8 +29,6 @@ from touchgs_torch.native import arm as tarm
 from touchgs_torch.native import loader as tloader
 from touchgs_torch.touch import sensor_loop as tsl
 
-from chip_smoke import (ARM_COM, ARM_D, ARM_DH, ARM_F_STOP, ARM_K, ARM_MASS,
-                        guarded_touch)
 from tests.test_torch_sensor import sensors
 from tests.test_torch_sensor_nets import one_torch_thread
 
@@ -38,6 +36,37 @@ __all__ = ["sensors", "one_torch_thread"]   # fixtures
 
 ROOT = Path(__file__).resolve().parents[1]
 JAX_DIR = ROOT / "touchgs_tpu" / "native"
+
+# the guarded touch of tests/test_native.py: a yaw base and two pitch links
+# (standard DH rows a, alpha, d, theta), pressed 3 cm into a plane at 5 N
+ARM_DH = [[0.0, -np.pi / 2, 0.4, 0.0], [0.4, 0.0, 0.0, 0.0],
+          [0.3, 0.0, 0.0, 0.0]]
+ARM_MASS = [2.0, 1.5, 0.8]
+ARM_COM = [[0.0, 0.0, 0.2], [0.2, 0.0, 0.0], [0.15, 0.0, 0.0]]
+ARM_Q0 = [0.0, -0.4, 0.8]
+ARM_K, ARM_D = [600.0] * 3 + [30.0] * 3, [50.0] * 3 + [3.0] * 3
+ARM_STEPS, ARM_F_STOP = 12_000, 5.0
+
+
+def guarded_touch(arm_module, steps: int = ARM_STEPS) -> dict:
+    """The guarded touch with ``arm_module``'s ``CompliantArm`` and
+    ``ArmSim`` (the port's or the JAX package's): approach along -z at
+    5 cm/s onto a plane 3 cm below the tool until the contact force
+    reaches ARM_F_STOP, then hold it.  Returns whether it was held after
+    the last step, the contact force, and q after every step."""
+    arm = arm_module.CompliantArm(ARM_DH, ARM_MASS, ARM_COM)
+    z0 = float(arm.fk(ARM_Q0)[2, 3])
+    sim = arm_module.ArmSim(arm, q0=ARM_Q0, plane_z=z0 - 0.03,
+                            k_contact=2000.0)
+    qs = np.empty((steps, len(ARM_Q0)))
+    for i in range(steps):
+        held = sim.step_guarded([0.0, 0.0, -1.0], speed=0.05,
+                                f_stop=ARM_F_STOP, stiffness=ARM_K,
+                                damping=ARM_D, dt=1e-3, tol_n=0.5)
+        qs[i] = np.asarray(sim.state()[0])
+    force = np.asarray(sim.contact_force())
+    arm.close()
+    return {"held": held, "force": force, "q": qs}
 SOURCES = ("Makefile", "png_io.cpp", "png_io.h", "dataloader.cpp",
            "jpeg_decode.h", "arm_control.cpp", "arm_control.h",
            "v4l2_camera.h", "v4l2_capture.cpp", "sync_capture.cpp")
@@ -211,7 +240,7 @@ def test_encode_png_equals_jax(libs, tmp_path, kind):
 
 def _dh_chain(q: torch.Tensor):
     """Standard DH in torch: the tool pose, each joint's z axis and origin,
-    and the links' centres of mass (the arm of ``chip_smoke.py``)."""
+    and the links' centres of mass (the arm of ``guarded_touch``)."""
     T = torch.eye(4, dtype=torch.float64)
     zs, origins, coms = [T[:3, 2]], [T[:3, 3]], []
     for i, (a, alpha, d, theta0) in enumerate(ARM_DH):
@@ -277,7 +306,7 @@ def test_arm_kinematics_equal_jax_and_a_torch_chain(qi):
 
 
 def test_sim_trajectories_equal_jax():
-    """A compliance move and the guarded touch of ``chip_smoke.py``, step
+    """A compliance move and the guarded touch (``guarded_touch``), step
     for step equal to the JAX package's simulator; the touch holds its
     force setpoint."""
     runs = []
@@ -487,8 +516,8 @@ def test_concurrent_first_builds(tmp_path):
 
 
 def test_missing_prerequisites_are_named(monkeypatch):
-    """Without ``g++`` or ``make`` on the path, each is named (what
-    ``chip_smoke.py`` prints before it goes on without the layer)."""
+    """Without ``g++`` or ``make`` on the path, each is named (what the card
+    test of the capture tool skips with)."""
     assert tloader.missing_prerequisites() == []
     monkeypatch.setattr(tloader.shutil, "which", lambda tool: None)
     assert tloader.missing_prerequisites() == ["g++", "make"]

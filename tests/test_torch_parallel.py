@@ -136,7 +136,7 @@ def view():
                          device="cpu")
     params = dataclasses.replace(params, logit_opacities=torch.full(
         (512,), 0.5), log_scales=params.log_scales - 1.0)
-    from chip_smoke import look_at_c2w
+    from test_torch_shade import look_at_c2w
     cam = Camera(fx=torch.tensor(np.float32(110)),
                  fy=torch.tensor(np.float32(110)),
                  cx=torch.tensor(np.float32(80)),

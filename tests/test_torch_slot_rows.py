@@ -12,7 +12,8 @@ entries.
 
 The launch path's checks: ``cuda_build.check_tensor`` on a wrong dtype,
 shape or layout, and every wrapper on a mix of devices (meta tensors
-beside CPU ones).  The kernels on the card are held against these plain
+beside CPU ones); ``cuda_build.launch``'s count, its per-stream redirect
+and its error, with the launcher and the stream stubbed.  The kernels on the card are held against these plain
 versions in ``tests/test_torch_cuda.py``.
 """
 import jax
@@ -69,10 +70,10 @@ def test_slot_rows_bit_exact_with_jax(scene, case, k_tile):
     attrs, sg, starts, capped, n_tiles, dead = _slot_case(case, k_tile, scene)
     j_gidx, j_rows = _jax_slot_rows(attrs, sg, starts, capped, n_tiles,
                                     k_tile, dead)
-    before = dict(rc.launches)
+    before = dict(cuda_build.launches)
     gidx, rows = rc.slot_rows(*_torch_args(attrs, sg, starts, capped,
                                            n_tiles, dead, k_tile))
-    assert rc.launches == before                  # the CPU launches nothing
+    assert cuda_build.launches == before          # the CPU launches nothing
     assert gidx.dtype == torch.int32 and rows.dtype == torch.float32
     assert rows.shape == (n_tiles, k_tile, plain.A)
     np.testing.assert_array_equal(gidx.numpy(), j_gidx)
@@ -181,10 +182,10 @@ def test_launch_path_rejects(fault):
     launch: the argument check on a wrong dtype, shape or layout, and every
     wrapper on tensors that are neither all on the CPU nor all on CUDA."""
     call, match = _FAULTS[fault]
-    before = {**rc.launches, **anatomy.launches, **cuda_build.launches}
+    before = dict(cuda_build.launches)
     with pytest.raises(ValueError, match=match):
         call()
-    assert before == {**rc.launches, **anatomy.launches, **cuda_build.launches}
+    assert before == dict(cuda_build.launches)
 
 
 def test_on_cuda_dispatch():
@@ -193,3 +194,43 @@ def test_on_cuda_dispatch():
     assert cuda_build.on_cuda(_cpu(4), _cpu((2, 3), torch.float64)) is False
     x = _cpu(4, torch.float32)
     cuda_build.check_tensor(x, "x", torch.float32, (4,))
+
+
+def test_launch_counts_under_its_key_and_stream(monkeypatch):
+    """``cuda_build.launch`` appends the current stream, counts a launch as
+    its key (its name by default) in ``launches``, or in the dict that
+    ``launches_on`` gave the launch's stream; a CUDA error raises and
+    counts nothing; ``add_launches`` adds a graph's counts.
+    ``rasterize_cuda.launches`` is the same dict."""
+    import types
+
+    calls, errors, stream = [], [0], [7]
+
+    def fake_launcher(name, src=cuda_build.CSRC):
+        return lambda *args: calls.append((name, args)) or errors[0]
+
+    monkeypatch.setattr(cuda_build, "launcher", fake_launcher)
+    monkeypatch.setattr(cuda_build, "current_stream", lambda: stream[0])
+    assert rc.launches is cuda_build.launches
+    before = dict(cuda_build.launches)
+    cuda_build.launch("slot_lists", 1, 2, key="slot_rows")
+    cuda_build.launch("composite_fwd", 3)
+    assert calls == [("slot_lists", (1, 2, 7)), ("composite_fwd", (3, 7))]
+    side = dict.fromkeys(cuda_build.launches, 0)
+    with cuda_build.launches_on(types.SimpleNamespace(cuda_stream=9), side):
+        stream[0] = 9
+        cuda_build.launch("composite_bwd")
+        stream[0] = 7
+        cuda_build.launch("composite_bwd")
+    errors[0] = 700
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        cuda_build.launch("ssim_fwd")
+    assert side == {**dict.fromkeys(side, 0), "composite_bwd": 1}
+    cuda_build.add_launches(side)
+    want = {**before, "slot_rows": before["slot_rows"] + 1,
+            "composite_fwd": before["composite_fwd"] + 1,
+            "composite_bwd": before["composite_bwd"] + 2}
+    assert cuda_build.launches == want
+    assert not cuda_build._redirect
+    for k, n in before.items():
+        cuda_build.launches[k] = n

@@ -16,23 +16,14 @@ from touchgs_torch.data.scene import Scene
 from touchgs_torch.train.trainer import Trainer
 from touchgs_torch.utils import telemetry
 
+from test_torch_shade import look_at_c2w
+
 W, H, N_VIEWS, N_SEED = 64, 48, 3, 300
-
-
-def _look_at_c2w(eye) -> np.ndarray:
-    eye = np.asarray(eye, np.float64)
-    fwd = -eye / np.linalg.norm(eye)          # towards the origin
-    right = np.cross(fwd, [0.0, 1.0, 0.0])
-    right /= np.linalg.norm(right)
-    up = np.cross(right, fwd)
-    c2w = np.eye(4, dtype=np.float32)[:3]
-    c2w[:, 0], c2w[:, 1], c2w[:, 2], c2w[:, 3] = right, up, -fwd, eye
-    return c2w
 
 
 def _scene() -> Scene:
     rng = np.random.default_rng(0)
-    c2w = np.stack([_look_at_c2w((2.0 * np.cos(t), 0.6, 2.0 * np.sin(t)))
+    c2w = np.stack([look_at_c2w((2.0 * np.cos(t), 0.6, 2.0 * np.sin(t)))
                     for t in np.linspace(0.4, 1.4, N_VIEWS)])
     f = np.full(N_VIEWS, 60.0, np.float32)
     cams = Cameras(fx=f, fy=f.copy(), cx=np.full(N_VIEWS, W / 2, np.float32),

@@ -13,8 +13,9 @@ Ports of the two Pallas kernels of ``tools/exp_kernel_anatomy.py``:
   (n_tiles, 1, 1024) f32.
 
 Each wrapper dispatches on its tensors' device: on the CPU it runs the plain
-version here; on CUDA it launches its kernel or raises.  ``launches``
-counts kernel launches by name.
+version here; on CUDA it launches its kernel through
+``cuda_build.launch``, which counts it as ``anatomy_<mode>`` or
+``bf16_probe_<leg>``, or raises.
 """
 from __future__ import annotations
 
@@ -23,7 +24,7 @@ import torch
 from touchgs_torch.config import RasterizeConfig
 from touchgs_torch.ops import cuda_build
 from touchgs_torch.ops import rasterize_plain as plain
-from touchgs_torch.ops.cuda_build import check_tensor, current_stream, on_cuda
+from touchgs_torch.ops.cuda_build import check_tensor, on_cuda
 from touchgs_torch.ops.rasterize_cuda import _check_geometry
 
 MODES = ("full", "no_mxu", "alpha_only", "noexp")
@@ -35,9 +36,6 @@ OPS_PER_PAIR = {"full": 31, "no_mxu": 23, "alpha_only": 19, "noexp": 19}
 PROBE_CHAIN_OPS, PROBE_SUM_OPS = 18, 1
 PROBE_ROWS, PROBE_CHUNK, PROBE_COLS, PROBE_NPIX = 512, 128, 16, 1024
 PROBE_DTYPES = {"f32": torch.float32, "bf16": torch.bfloat16}
-
-launches = {**{f"anatomy_{m}": 0 for m in MODES},
-            **{f"bf16_probe_{k}": 0 for k in PROBE_DTYPES}}
 
 
 def variant_plain(mode: str, n_chunks, tile_ids, attrs_tiled, th, tw,
@@ -102,14 +100,13 @@ def variant(mode: str, n_chunks, tile_ids, attrs_tiled, th, tw, k_tile,
     # `full` stores its R, G, B, D rows here, so they stay in the code
     scratch = (torch.empty((n_tiles, 4, npix), dtype=torch.float32,
                            device=out.device) if mode == "full" else None)
-    cuda_build.call("anatomy_variants", n_chunks.data_ptr(),
-                    tile_ids.data_ptr(), attrs_tiled.data_ptr(),
-                    out.data_ptr(),
-                    None if scratch is None else scratch.data_ptr(),
-                    MODES.index(mode), n_tiles, th, tw, k_tile, k_chunk,
-                    n_tx, cfg.alpha_clip, cfg.alpha_threshold,
-                    current_stream())
-    launches[f"anatomy_{mode}"] += 1
+    cuda_build.launch("anatomy_variants", n_chunks.data_ptr(),
+                      tile_ids.data_ptr(), attrs_tiled.data_ptr(),
+                      out.data_ptr(),
+                      None if scratch is None else scratch.data_ptr(),
+                      MODES.index(mode), n_tiles, th, tw, k_tile, k_chunk,
+                      n_tx, cfg.alpha_clip, cfg.alpha_threshold,
+                      key=f"anatomy_{mode}")
     return out
 
 
@@ -151,7 +148,6 @@ def bf16_probe(attrs: torch.Tensor) -> torch.Tensor:
         raise ValueError("attrs: want a 16-byte aligned start")
     out = torch.empty((n_tiles, 1, PROBE_NPIX), dtype=torch.float32,
                       device=attrs.device)
-    cuda_build.call("bf16_probe", attrs.data_ptr(), out.data_ptr(),
-                    int(leg == "bf16"), n_tiles, current_stream())
-    launches[f"bf16_probe_{leg}"] += 1
+    cuda_build.launch("bf16_probe", attrs.data_ptr(), out.data_ptr(),
+                      int(leg == "bf16"), n_tiles, key=f"bf16_probe_{leg}")
     return out

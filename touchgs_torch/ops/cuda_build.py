@@ -9,18 +9,26 @@ together, into ``csrc/build/<hash of the sources and flags>/``, so a changed
 source rebuilds and an unchanged one is reused.  Nothing is built on import.
 
 Beside the build: the helpers every kernel wrapper uses (device dispatch,
-argument checks, the raw handle of the current stream, the launch itself),
-and ``compile_smoke``, the build-and-launch check (port of
-``bench.py::pallas_compile_smoke``).
+argument checks, the raw handle of the current stream), the launch itself
+with its count (``launch``, ``launches``), and ``compile_smoke``, the
+build-and-launch check (port of ``bench.py::pallas_compile_smoke``).
+
+``launches`` counts every kernel launch by key: a wrapper's name (K1's
+lists alone, ``slot_lists``, and with their rows, ``slot_rows``, apart; K5
+by mode, ``anatomy_<mode>``; K6 by leg, ``bf16_probe_<leg>``).  A CUDA
+graph's capture and warm-up count theirs apart (``launches_on``), and each
+replay adds its capture's counts (``add_launches``).
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
 import re
 import subprocess
+import threading
 from pathlib import Path
 from typing import Optional
 
@@ -70,8 +78,21 @@ SIGNATURES = {
     # near, eps2d; stream
     "shade_bwd": [_P] * 20 + [_I] * 5 + [_F] * 2 + [_P],
 }
-# launches of compile_smoke (the other wrappers count their own)
-launches = {"compile_smoke": 0}
+# kernel launches by key; only a launch of a CUDA kernel counts.  A live
+# viewer renders on another thread than training, so the counts are
+# incremented under a lock.
+launches = dict.fromkeys((
+    "slot_lists", "slot_rows", "composite_fwd", "composite_bwd", "ssim_fwd",
+    "ssim_bwd", "shade_fwd", "shade_bwd", "compile_smoke", "anatomy_full",
+    "anatomy_no_mxu", "anatomy_alpha_only", "anatomy_noexp",
+    "bf16_probe_f32", "bf16_probe_bf16"), 0)
+# the launches of the graphed step's warm-ups, on a clone of the state
+# (``train/graphs.py``), counted apart from ``launches``
+launches_warmup = dict.fromkeys(launches, 0)
+_count_lock = threading.Lock()
+# raw stream handle -> the dict that counts the launches made on that stream
+# instead of ``launches`` (``launches_on``)
+_redirect: dict = {}
 
 _launchers: dict = {}
 # ptxas output (registers, shared memory, spills) of the last build, by kernel
@@ -261,12 +282,41 @@ def current_stream() -> int:
     return torch._C._cuda_getCurrentRawStream(-1)
 
 
-def call(name: str, *args, src: Path = CSRC) -> None:
-    """Run ``<name>_launch`` (built from ``src``) with ``args``: pointers
-    as ints, the stream last; a nonzero CUDA error raises."""
-    err = launcher(name, src)(*args)
+def launch(name: str, *args, key: Optional[str] = None,
+           src: Path = CSRC) -> None:
+    """Run ``<name>_launch`` (built from ``src``) on the current stream
+    with ``args``, pointers as ints; a nonzero CUDA error raises.  The
+    launch counts as ``key`` (``name`` by default)."""
+    stream = current_stream()
+    err = launcher(name, src)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    with _count_lock:
+        _redirect.get(stream, launches)[key or name] += 1
+
+
+@contextlib.contextmanager
+def launches_on(stream: torch.cuda.Stream, into: dict):
+    """Count the launches made on ``stream`` in ``into`` (keyed as
+    ``launches``) instead of ``launches`` while the block runs.  Keyed by
+    the stream, not the thread: autograd launches K3 from its own thread,
+    on the stream of the forward, and a viewer's renders on another thread
+    and stream keep counting in ``launches``."""
+    with _count_lock:
+        _redirect[stream.cuda_stream] = into
+    try:
+        yield into
+    finally:
+        with _count_lock:
+            del _redirect[stream.cuda_stream]
+
+
+def add_launches(counts: dict) -> None:
+    """Add ``counts`` to ``launches``: a replayed CUDA graph launches its
+    kernels without running the wrappers."""
+    with _count_lock:
+        for k, n in counts.items():
+            launches[k] += n
 
 
 def compile_smoke_plain(x: torch.Tensor) -> torch.Tensor:
@@ -283,7 +333,5 @@ def compile_smoke(x: Optional[torch.Tensor] = None) -> torch.Tensor:
         return compile_smoke_plain(x)
     check_tensor(x, "x", torch.float32, tuple(x.shape))
     out = torch.empty_like(x)
-    call("compile_smoke", x.data_ptr(), out.data_ptr(), x.numel(),
-         current_stream())
-    launches["compile_smoke"] += 1
+    launch("compile_smoke", x.data_ptr(), out.data_ptr(), x.numel())
     return out

@@ -24,9 +24,7 @@ Division of labour, as in the JAX package:
 
 Each wrapper dispatches on its tensors' device: on the CPU it runs the
 plain PyTorch version in ``ops.rasterize_plain``; on CUDA it launches its
-kernel or raises.  ``launches`` counts kernel launches by name; a CUDA
-graph's capture and warm-up count theirs apart (``launches_on``), and each
-replay adds its capture's counts (``add_launches``).
+kernel through ``cuda_build.launch``, which counts it, or raises.
 
 ``rasterize_cuda`` renders one view, its tile grid whole or in slices
 (``tile_shards``; with a ``mesh`` each rank composites its own slice, as
@@ -42,8 +40,6 @@ so the kernels evaluate α = op·2^(−σ̃) with one exp2.
 """
 from __future__ import annotations
 
-import contextlib
-import threading
 from typing import Optional, Sequence
 
 import torch
@@ -66,53 +62,9 @@ _DMA_ALIGN = 128  # k_tile stays a multiple of this, as in the JAX package
 # S_u in shared memory (ROADMAP C40)
 MAX_TILE_PIXELS = 16384
 
-# kernel launches by wrapper; only a launch of the CUDA kernel counts.  A
-# live viewer renders on another thread than training, so the counts are
-# incremented under a lock.  The SSIM kernels of ``ops.ssim`` and the shade
-# kernels of ``ops.shade``, which run in the same steps and graphs, count
-# here too.
-launches = {"slot_lists": 0, "slot_rows": 0, "composite_fwd": 0,
-            "composite_bwd": 0, "ssim_fwd": 0, "ssim_bwd": 0,
-            "shade_fwd": 0, "shade_bwd": 0}
-# the launches of the graphed step's warm-ups, on a clone of the state
-# (``train/graphs.py``), counted apart from ``launches``
-launches_warmup = dict.fromkeys(launches, 0)
-_count_lock = threading.Lock()
-# raw stream handle -> the dict that counts the launches made on that stream
-# instead of ``launches`` (``launches_on``)
-_redirect: dict = {}
-
-
-def _launch(name: str, key: str, *args) -> None:
-    """Launch ``<name>_launch`` on the current stream; count it as ``key``."""
-    stream = cuda_build.current_stream()
-    cuda_build.call(name, *args, stream)
-    with _count_lock:
-        _redirect.get(stream, launches)[key] += 1
-
-
-@contextlib.contextmanager
-def launches_on(stream: torch.cuda.Stream, into: dict):
-    """Count the launches made on ``stream`` in ``into`` (keyed as
-    ``launches``) instead of ``launches`` while the block runs.  Keyed by
-    the stream, not the thread: autograd launches K3 from its own thread,
-    on the stream of the forward, and a viewer's renders on another thread
-    and stream keep counting in ``launches``."""
-    with _count_lock:
-        _redirect[stream.cuda_stream] = into
-    try:
-        yield into
-    finally:
-        with _count_lock:
-            del _redirect[stream.cuda_stream]
-
-
-def add_launches(counts: dict) -> None:
-    """Add ``counts`` to ``launches``: a replayed CUDA graph launches its
-    kernels without running the wrappers."""
-    with _count_lock:
-        for k, n in counts.items():
-            launches[k] += n
+# the one launch counter, ``cuda_build.launches``, under the name the
+# benchmark's job log prints
+launches = cuda_build.launches
 
 
 def _check_geometry(th, tw, k_tile, k_chunk):
@@ -145,9 +97,9 @@ def slot_lists(sorted_gauss, tile_starts, counts, n_tiles: int, k_tile: int,
     _check_lists(sorted_gauss, tile_starts, counts, n_tiles)
     out = torch.empty((n_tiles, k_tile), dtype=torch.int32,
                       device=sorted_gauss.device)
-    _launch("slot_lists", "slot_lists", sorted_gauss.data_ptr(),
-            tile_starts.data_ptr(), counts.data_ptr(), None, out.data_ptr(),
-            None, n_tiles, k_tile, dead, tile0)
+    cuda_build.launch("slot_lists", sorted_gauss.data_ptr(),
+                      tile_starts.data_ptr(), counts.data_ptr(), None,
+                      out.data_ptr(), None, n_tiles, k_tile, dead, tile0)
     return out
 
 
@@ -169,9 +121,10 @@ def slot_rows(attrs, sorted_gauss, tile_starts, counts, n_tiles: int,
                        device=attrs.device)
     rows = torch.empty((n_tiles, k_tile, plain.A), dtype=torch.float32,
                        device=attrs.device)
-    _launch("slot_lists", "slot_rows", sorted_gauss.data_ptr(),
-            tile_starts.data_ptr(), counts.data_ptr(), attrs.data_ptr(),
-            gidx.data_ptr(), rows.data_ptr(), n_tiles, k_tile, dead, tile0)
+    cuda_build.launch("slot_lists", sorted_gauss.data_ptr(),
+                      tile_starts.data_ptr(), counts.data_ptr(),
+                      attrs.data_ptr(), gidx.data_ptr(), rows.data_ptr(),
+                      n_tiles, k_tile, dead, tile0, key="slot_rows")
     return gidx, rows
 
 
@@ -228,10 +181,10 @@ def forward_tiles(n_chunks, tile_ids, attrs_tiled, th, tw, k_tile, k_chunk,
            (n_tiles, k_tile, plain.A))
     out = torch.empty((n_tiles, plain.ROWS, th * tw), dtype=torch.float32,
                       device=attrs_tiled.device)
-    _launch("composite_fwd", "composite_fwd", n_chunks.data_ptr(),
-            tile_ids.data_ptr(), attrs_tiled.data_ptr(), out.data_ptr(),
-            n_tiles, th, tw, k_tile, k_chunk, n_tx, cfg.alpha_clip,
-            cfg.alpha_threshold, int(early_exit))
+    cuda_build.launch("composite_fwd", n_chunks.data_ptr(),
+                      tile_ids.data_ptr(), attrs_tiled.data_ptr(),
+                      out.data_ptr(), n_tiles, th, tw, k_tile, k_chunk, n_tx,
+                      cfg.alpha_clip, cfg.alpha_threshold, int(early_exit))
     return out
 
 
@@ -254,10 +207,11 @@ def backward_tiles(chunks_done, tile_ids, attrs_tiled, fwd_stack, grad_stack,
     _check(fwd_stack, "fwd_stack", torch.float32, stack_shape)
     _check(grad_stack, "grad_stack", torch.float32, stack_shape)
     out = torch.empty_like(attrs_tiled)
-    _launch("composite_bwd", "composite_bwd", chunks_done.data_ptr(),
-            tile_ids.data_ptr(), attrs_tiled.data_ptr(), fwd_stack.data_ptr(),
-            grad_stack.data_ptr(), out.data_ptr(), n_tiles, th, tw, k_tile,
-            k_chunk, n_tx, cfg.alpha_clip, cfg.alpha_threshold)
+    cuda_build.launch("composite_bwd", chunks_done.data_ptr(),
+                      tile_ids.data_ptr(), attrs_tiled.data_ptr(),
+                      fwd_stack.data_ptr(), grad_stack.data_ptr(),
+                      out.data_ptr(), n_tiles, th, tw, k_tile, k_chunk, n_tx,
+                      cfg.alpha_clip, cfg.alpha_threshold)
     return out
 
 

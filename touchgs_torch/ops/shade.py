@@ -37,6 +37,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from touchgs_torch.config import ModelConfig
+from touchgs_torch.ops import cuda_build
 from touchgs_torch.ops import rasterize_cuda as rc
 from touchgs_torch.ops import rasterize_plain as plain
 from touchgs_torch.ops.cuda_build import check_tensor as _check
@@ -305,17 +306,17 @@ def shade_fwd(params: tuple, alive, offset: Optional[torch.Tensor], camera,
     depths, radii, cull = (torch.empty((C,), dtype=torch.float32,
                                        device=dev) for _ in range(3))
     valid = torch.empty((C,), dtype=torch.bool, device=dev)
-    rc._launch("shade_fwd", "shade_fwd",
-               *(t.data_ptr() for t in params), alive.data_ptr(),
-               None if offset is None else offset.data_ptr(),
-               *(t.data_ptr() for t in _camera_tensors(camera, w2c)),
-               table.data_ptr(), means2d.data_ptr(), depths.data_ptr(),
-               radii.data_ptr(), cull.data_ptr(), valid.data_ptr(), C, dead,
-               n_rest, active, camera.width, camera.height, rcfg.near,
-               rcfg.eps2d, rcfg.sigma_cutoff,
-               # the op chain's division by a Python number: PyTorch's
-               # CUDA kernel multiplies by its reciprocal, taken in double
-               1.0 / rcfg.alpha_threshold)
+    cuda_build.launch(
+        "shade_fwd", *(t.data_ptr() for t in params), alive.data_ptr(),
+        None if offset is None else offset.data_ptr(),
+        *(t.data_ptr() for t in _camera_tensors(camera, w2c)),
+        table.data_ptr(), means2d.data_ptr(), depths.data_ptr(),
+        radii.data_ptr(), cull.data_ptr(), valid.data_ptr(), C, dead,
+        n_rest, active, camera.width, camera.height, rcfg.near, rcfg.eps2d,
+        rcfg.sigma_cutoff,
+        # the op chain's division by a Python number: PyTorch's CUDA
+        # kernel multiplies by its reciprocal, taken in double
+        1.0 / rcfg.alpha_threshold)
     return table, means2d, depths, radii, cull, valid
 
 
@@ -337,12 +338,12 @@ def shade_bwd(grad_table: torch.Tensor, params: tuple, camera, w2c,
                          "float4 loads")
     grads = tuple(torch.empty_like(t) for t in params) + (
         params[0].new_empty((C, 2)),)
-    rc._launch("shade_bwd", "shade_bwd", grad_table.data_ptr(),
-               *(t.data_ptr() for t in params),
-               *(t.data_ptr() for t in _camera_tensors(camera, w2c)),
-               *(t.data_ptr() for t in grads), C, n_rest, active,
-               camera.width, camera.height, cfg.rasterize.near,
-               cfg.rasterize.eps2d)
+    cuda_build.launch("shade_bwd", grad_table.data_ptr(),
+                      *(t.data_ptr() for t in params),
+                      *(t.data_ptr() for t in _camera_tensors(camera, w2c)),
+                      *(t.data_ptr() for t in grads), C, n_rest, active,
+                      camera.width, camera.height, cfg.rasterize.near,
+                      cfg.rasterize.eps2d)
     return grads
 
 

@@ -42,7 +42,6 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from touchgs_torch.ops import cuda_build
-from touchgs_torch.ops import rasterize_cuda as rc
 from touchgs_torch.ops.cuda_build import check_tensor as _check
 from touchgs_torch.ops.cuda_build import on_cuda as _on_cuda
 
@@ -190,10 +189,11 @@ def ssim_fwd(img0: torch.Tensor, img1: torch.Tensor, c1: float, c2: float,
     scratch = torch.empty(n_scratch, dtype=torch.float32, device=dev)
     maps = (torch.empty((3, C, H, W), dtype=torch.float32, device=dev)
             if partials else None)
-    rc._launch("ssim_fwd", "ssim_fwd", img0.data_ptr(), img1.data_ptr(),
-               C, H, W, *img0.stride(), *img1.stride(), ctypes.addressof(_TAPS),
-               c1, c2, 0 if maps is None else maps.data_ptr(),
-               scratch.data_ptr(), n_scratch, value.data_ptr())
+    cuda_build.launch("ssim_fwd", img0.data_ptr(), img1.data_ptr(), C, H, W,
+                      *img0.stride(), *img1.stride(),
+                      ctypes.addressof(_TAPS), c1, c2,
+                      0 if maps is None else maps.data_ptr(),
+                      scratch.data_ptr(), n_scratch, value.data_ptr())
     return value, maps
 
 
@@ -208,9 +208,10 @@ def ssim_bwd(img0: torch.Tensor, img1: torch.Tensor, maps: torch.Tensor,
     _check(maps, "maps", torch.float32, (3, C, H, W))
     _check(grad, "grad", torch.float32, ())
     dx = torch.empty_like(img0)
-    rc._launch("ssim_bwd", "ssim_bwd", img0.data_ptr(), img1.data_ptr(),
-               C, H, W, *img0.stride(), *img1.stride(), ctypes.addressof(_TAPS),
-               maps.data_ptr(), grad.data_ptr(), dx.data_ptr(), *dx.stride())
+    cuda_build.launch("ssim_bwd", img0.data_ptr(), img1.data_ptr(), C, H, W,
+                      *img0.stride(), *img1.stride(),
+                      ctypes.addressof(_TAPS), maps.data_ptr(),
+                      grad.data_ptr(), dx.data_ptr(), *dx.stride())
     return dx
 
 

@@ -50,7 +50,8 @@ K_CHUNK = 64  # rasterize_cuda's default, as rasterize_pallas's
 # (tile_h, tile_w, k_tile, max_tiles_per_gaussian), tools/exp_tile_size.py:56-58
 GEOMETRIES = ((32, 32, 512, 16), (32, 64, 1024, 12), (64, 64, 2048, 8),
               (64, 64, 1024, 8), (16, 32, 256, 24))
-# a tile whose pixel count is not a multiple of 32, held by chip_smoke.py
+# a tile whose pixel count is not a multiple of 32 (held on the card by
+# tests/test_torch_cuda.py::test_group_kernels_match_plain's 12x12 case)
 ODD_GEOMETRY = (12, 12, 256, 24)
 
 

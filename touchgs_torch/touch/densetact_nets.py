@@ -41,8 +41,8 @@ DEPTH_KEY = "encoder.densenet.features.conv0.weight"
 
 
 # the stride-1 3×3 convs that cuDNN ran faster in float32 than unfold +
-# matmul on an H100 at 640² (chip_smoke.py phase 4f's conv table, PERF.md
-# §6), as (in channels, out channels, height, width): the dense layers at
+# matmul on an H100 at 640² (the conv table of PERF.md §6, timed by
+# ``tools/profile_vision.py``), as (in channels, out channels, height, width): the dense layers at
 # 160², 80² and 20² (0.70-0.75x) and the decoder's at 320² (0.67-0.88x);
 # at 40² cuDNN took 2.9x as long, and at 160² the decoder's 372 → 138 took
 # 176 ms as GEMV launches against 1.05 unfolded (ROADMAP.md C33)

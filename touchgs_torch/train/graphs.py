@@ -56,9 +56,9 @@ kernel wrapper runs its plain version on CPU tensors (and the mesh steps
 their gloo collectives).
 
 Launch counts: a replay runs no Python, so each graph keeps the counts of
-its capture and adds them to ``rasterize_cuda.launches`` at every replay;
-the warm-ups' launches, real ones on the clone, go to
-``rasterize_cuda.launches_warmup``.
+its capture and adds them to ``cuda_build.launches`` at every replay; the
+warm-ups' launches, real ones on the clone, go to
+``cuda_build.launches_warmup``.
 """
 from __future__ import annotations
 
@@ -69,7 +69,7 @@ from typing import Callable, Optional
 
 import torch
 
-from touchgs_torch.ops import rasterize_cuda as rc
+from touchgs_torch.ops import cuda_build
 from touchgs_torch.utils import telemetry
 
 WARMUP_ITERS = 3  # eager calls on a clone before a capture
@@ -134,7 +134,7 @@ class _Graph:
         self.inputs = tuple(_own(x, device) for x in inputs)
         self.graph = torch.cuda.CUDAGraph()
         self.metrics: dict = {}
-        self.launches = dict.fromkeys(rc.launches, 0)
+        self.launches = dict.fromkeys(cuda_build.launches, 0)
         self.stages = telemetry.StageEvents()
         self.tiles = telemetry.TileLists()
 
@@ -142,7 +142,7 @@ class _Graph:
         for dst, src in zip(self.inputs, inputs):
             _copy_in(dst, src)
         self.graph.replay()
-        rc.add_launches(self.launches)
+        cuda_build.add_launches(self.launches)
 
 
 class GraphedStep:
@@ -237,7 +237,8 @@ class GraphedStep:
             s.wait_stream(torch.cuda.current_stream())
             # the warm-ups also run the step's collectives on the capture
             # stream before the capture, as NCCL wants
-            with torch.cuda.stream(s), rc.launches_on(s, rc.launches_warmup):
+            with torch.cuda.stream(s), cuda_build.launches_on(
+                    s, cuda_build.launches_warmup):
                 warm = copy.deepcopy(state)
                 for _ in range(WARMUP_ITERS):
                     self._run(warm, g.inputs, sh)
@@ -245,7 +246,7 @@ class GraphedStep:
             torch.cuda.current_stream().wait_stream(s)
             # "thread_local": a live viewer renders (and syncs) on its own
             # thread while the trainer captures
-            with rc.launches_on(s, g.launches), torch.cuda.graph(
+            with cuda_build.launches_on(s, g.launches), torch.cuda.graph(
                     g.graph, pool=self.pool, stream=s,
                     capture_error_mode="thread_local"), \
                     telemetry.marks_to(g.stages), \
