@@ -25,7 +25,13 @@ Phases (any failure raises, and the script exits nonzero with no result):
    without, within rgb/acc 3e-5 and depth 3e-4 with equal chunks_done
    (without the exit: min(n_chunks, k_tile/k_chunk)) and an equal T row;
    K3 backward within rtol 1e-4 / atol 1e-5 on a seeded random cotangent
-   (it prints whether it is bit-exact, as it should be).
+   (it prints whether it is bit-exact, as it should be); K1's backward,
+   the rows' scatter-add (``scatter_rows``), on K3's gradients: equal to
+   ``index_put_``'s scatter-add of every slot on the rows below the dead
+   ones, zero on the dead rows, equal to its plain design on every row,
+   timed per call and on the device beside ``index_put_``, against the
+   bytes it cannot do without (SCATTER_SLOT_BYTES a live slot,
+   SCATTER_ROW_BYTES a row of the table).
 3. The SSIM pair of the loss (``ssim_fwd``, ``ssim_bwd``) against their
    plain versions at 800x800x3 and 1280x720x3, read as the loss reads the
    render, through the channel-major view of an (H, W, 3) image: the value
@@ -152,13 +158,17 @@ SHADE_ULPS, SHADE_GRAD_TOL = 2, 1e-5
 # groups' gradients and the offset's out.
 SHADE_FWD_BYTES = 240 + 1 + 8 + 64 + 8 + 4 + 4 + 4 + 1
 SHADE_BWD_BYTES = 240 + 40 + 236 + 8
+# what the rows' scatter-add cannot do without: a live slot's index and
+# gradient row read, a row of the table written
+SCATTER_SLOT_BYTES, SCATTER_ROW_BYTES = 4 + 64, 64
 HOST_CALLS = 10_000  # calls a round of the host-cost table
 K4_CALLS = 200       # calls a timing of K4 and torch.mul
 # phase 5: the kernels every training step launches once (the shade pair,
-# K1 with rows, K2, K3 and the SSIM pair of its loss), over TRAIN_STEPS
-# steps of the blender cell's polish phase from TRAIN_SEED
-TRAIN_PATH = ("slot_rows", "composite_fwd", "composite_bwd", "ssim_fwd",
-              "ssim_bwd", "shade_fwd", "shade_bwd")
+# K1 with rows and its backward, the rows' scatter-add, K2, K3 and the SSIM
+# pair of its loss), over TRAIN_STEPS steps of the blender cell's polish
+# phase from TRAIN_SEED
+TRAIN_PATH = ("slot_rows", "composite_fwd", "composite_bwd", "scatter_rows",
+              "ssim_fwd", "ssim_bwd", "shade_fwd", "shade_bwd")
 TRAIN_STEPS, TRAIN_SEED = 20, 7
 
 
@@ -580,6 +590,34 @@ def phase_kernels(dev) -> list:
           f"{bad.numel()} outside rtol 1e-4 / atol 1e-5")
     check(not bool(bad.any()), "K3 outside tolerance")
 
+    # K1's backward on K3's gradients: the kernel, its plain design, and
+    # the library's scatter-add of every slot it replaces
+    dead, width = x["N"], x["rcfg"].max_tiles_per_gaussian
+
+    def sc():
+        return rc.scatter_rows(d, gidx, capped, dead, width)
+
+    def sc_plain():
+        return plain.scatter_live_rows_plain(d, gidx, capped, dead, width)
+
+    def sc_library():
+        return plain.scatter_rows_plain(d, gidx, dead)
+
+    table, table_lib = sc(), sc_library()
+    torch.cuda.synchronize()
+    check(torch.equal(table[:dead], table_lib[:dead]),
+          "the scatter kernel differs from index_put_ below the dead rows")
+    check(not bool(table[dead:].any()), "the scatter kernel's dead rows "
+          "are not zero")
+    check(torch.equal(table, sc()) and torch.equal(table, sc_plain()),
+          "the scatter kernel is not deterministic or differs from its "
+          "plain design")
+    sc_err = float((table[:dead] - table_lib[:dead]).abs().max())
+    print(f"scatter: rows < dead equal to index_put_'s, the dead rows "
+          f"zero (index_put_'s: max |g| "
+          f"{float(table_lib[dead:].abs().max()):.3e}); {live_slots} live "
+          f"of {n_tiles * k_tile} slots")
+
     t_k1, t_k1p = 1e3 * measure(k1, iters=50), 1e3 * measure(k1_plain)
     t_k1r, t_k1rp = 1e3 * measure(k1r, iters=50), 1e3 * measure(k1r_plain)
     t_pair = 1e3 * measure(k1_pair, iters=50)
@@ -590,6 +628,9 @@ def phase_kernels(dev) -> list:
     t_k2p = 1e3 * measure(k2_plain, iters=2, warmup=0)
     t_k3 = 1e3 * measure(k3, iters=20)
     t_k3p = 1e3 * measure(k3_plain, iters=2, warmup=0)
+    t_sc, t_scl = 1e3 * measure(sc, iters=50), 1e3 * measure(sc_library)
+    t_scp = 1e3 * measure(sc_plain, iters=3, warmup=1)
+    dev_sc, dev_scl = device_ms(sc), device_ms(sc_library)
 
     b1 = bound(4 * (2 * n_tiles + live_slots + n_tiles * k_tile))
     b1r, b2, b3 = path_bounds(x, distinct, scanned)
@@ -602,6 +643,11 @@ def phase_kernels(dev) -> list:
           f"pair, pair, K1r: " + ", ".join(f"{v:.4f}" for v in tb))
     print(f"K1 with rows device time (profiler): {dev_k1r:.4f} ms, the "
           f"pair's {dev_pair:.4f} ms")
+    bsc = bound(SCATTER_SLOT_BYTES * live_slots
+                + SCATTER_ROW_BYTES * (dead + plain.DEAD_SPREAD))
+    print(f"scatter: {t_sc:.4f} ms per call, device {dev_sc:.5f} ms "
+          f"(bound {bsc[0]:.5f}, {100 * bsc[0] / dev_sc:.1f}%); index_put_ "
+          f"{t_scl:.4f} per call, device {dev_scl:.5f}; plain {t_scp:.3f}")
     print(f"K1 with rows bound: {b1r[0]:.5f} ms ({distinct} distinct rows "
           f"read once), {100 * b1r[0] / dev_k1r:.1f}% of its device time; "
           f"{per_slot[0]:.5f} ms with a row read per slot")
@@ -630,6 +676,15 @@ def phase_kernels(dev) -> list:
              replaces="touchgs_tpu/ops/rasterize_pallas.py:520",
              max_abs_err=k3_err, ms=t_k3, plain_ms=t_k3p, bound_ms=b3[0],
              bound_by=b3[1], library_ms=None),
+        dict(name="scatter_rows", route="cuda",
+             source="touchgs_torch/csrc/scatter_rows.cu",
+             replaces="none: the JAX package leaves the VJP of the gather "
+             "(touchgs_tpu/ops/rasterize_pallas.py:620) to XLA",
+             max_abs_err=sc_err, ms=t_sc, plain_ms=t_scp, bound_ms=bsc[0],
+             bound_by=bsc[1], library_ms=t_scl, device_ms=dev_sc,
+             library_device_ms=dev_scl,
+             library_note="index_put_ with accumulate=True over every "
+             "slot, the path the kernel replaces"),
     ]
 
 
@@ -764,6 +819,31 @@ def cell_shade_state(name: str, dev, seed: int = 7) -> tuple:
                  width=s["width"], height=s["height"])
     return (GaussianParams(**st["params"]), cam,
             job.train_config(cfg, seed).model)
+
+
+def cell_lists(name: str, dev, seed: int = 7) -> dict:
+    """K1's lists of a cell's start state (``cell_shade_state``) at the
+    cell's k_tile: ``gidx``, the capped ``counts``, ``dead`` (the
+    capacity) and ``width`` (the configuration's
+    max_tiles_per_gaussian)."""
+    from touchgs_torch.ops import rasterize_cuda as rc
+    from touchgs_torch.ops import rasterize_plain as plain
+    from touchgs_torch.ops.shade import shade_packed
+    from touchgs_torch.ops.tiles import bin_gaussians
+
+    params, cam, mcfg = cell_shade_state(name, dev, seed)
+    rcfg = mcfg.rasterize
+    with torch.no_grad():
+        proj, attrs = shade_packed(params, cam, mcfg)
+        bins = bin_gaussians(proj, cam.width, cam.height, rcfg)
+    dead = attrs.shape[0] - plain.DEAD_SPREAD
+    k_tile = rc._fit_k_tile(rcfg.k_tile, rcfg.k_chunk, dead)
+    n_tiles = bins.n_tiles_x * bins.n_tiles_y
+    counts = torch.clamp(bins.tile_counts, max=k_tile).contiguous()
+    gidx = rc.slot_lists(bins.sorted_gauss, bins.tile_starts, counts,
+                         n_tiles, k_tile, dead)
+    return dict(gidx=gidx, counts=counts, dead=dead,
+                width=rcfg.max_tiles_per_gaussian)
 
 
 def shade_errors(fwd, ref) -> dict:

@@ -47,7 +47,7 @@ N = 300
 # TRAIN_PATH: the kernels every training step launches once; the SO3xR3
 # step, whose camera takes a gradient, shades through the op chain and
 # launches the others (POSE_PATH)
-POSE_PATH = TRAIN_PATH[:5]
+POSE_PATH = TRAIN_PATH[:6]
 
 
 def _zero_launches() -> None:
@@ -570,13 +570,26 @@ def test_slot_rows_matches_plain(cuda_device, case, k_tile):
     assert cuda_build.launches["slot_lists"] == before["slot_lists"] + 1
 
 
+def gather_path(attrs, sorted_gauss, starts, counts, n_tiles, k_tile, dead,
+                width, tile0=0):
+    """``_SlotRows.apply`` as the tiles were read before K1 wrote their rows
+    and before the scatter kernel: K1's lists, then ``attrs[gidx]``, whose
+    backward is PyTorch's scatter-add of every slot, the dead ones too."""
+    gidx = rc.slot_lists(sorted_gauss, starts, counts, n_tiles, k_tile,
+                         dead, tile0)
+    return attrs[gidx], gidx
+
+
 @pytest.mark.cuda
 def test_rasterize_cuda_gradients_equal_gather_path(cuda_device,
                                                     monkeypatch):
-    """``rasterize_cuda`` through K1 with rows against the same render with
-    K1's lists gathered by ``attrs[gidx]``, as the tiles were read before
-    K1 wrote the rows: equal outputs and gradients, and one K1 launch a
-    render."""
+    """``rasterize_cuda`` through K1 with rows and its backward, the scatter
+    kernel, against the same render with K1's lists gathered by
+    ``attrs[gidx]``, whose backward is PyTorch's scatter-add of every slot:
+    equal outputs and parameter gradients, bit for bit (the dead rows'
+    gradient, which the scatter kernel leaves zero, reaches no parameter).
+    A render launches K1 once and the scatter kernel never; its backward
+    launches the scatter kernel once."""
     a = scene_arrays()
     dev = cuda_device
     bg = torch.tensor([0.1, 0.2, 0.3], device=dev)
@@ -589,27 +602,236 @@ def test_rasterize_cuda_gradients_equal_gather_path(cuda_device,
         out = rc.rasterize_cuda(proj._replace(means2d=proj.means2d + off),
                                 cols, op, W, H, RasterizeConfig(),
                                 background=bg)
+        torch.cuda.synchronize()
+        rendered = dict(cuda_build.launches)
         loss = (torch.mean((out.rgb - 0.25) ** 2) + 0.3 * torch.mean(out.depth)
                 + 0.1 * torch.mean(out.acc))
         return [out.rgb, out.acc, out.depth,
-                *torch.autograd.grad(loss, (off, cols, op))]
+                *torch.autograd.grad(loss, (off, cols, op))], rendered
 
     before = dict(cuda_build.launches)
-    new = render()
+    new, rendered = render()
     torch.cuda.synchronize()
-    assert cuda_build.launches["slot_rows"] == before["slot_rows"] + 1
-    assert cuda_build.launches["slot_lists"] == before["slot_lists"]
+    assert _counts_since(before, rendered) == _want(slot_rows=1,
+                                                    composite_fwd=1)
+    assert _counts_since(before, cuda_build.launches) == _want(
+        slot_rows=1, composite_fwd=1, composite_bwd=1, scatter_rows=1)
 
-    def gather(attrs, sorted_gauss, starts, counts, n_tiles, k_tile, dead,
-               tile0=0):
-        gidx = rc.slot_lists(sorted_gauss, starts, counts, n_tiles, k_tile,
-                             dead, tile0)
-        return attrs[gidx], gidx
-
-    monkeypatch.setattr(rc._SlotRows, "apply", gather)
-    old = render()
+    monkeypatch.setattr(rc._SlotRows, "apply", gather_path)
+    before = dict(cuda_build.launches)
+    old, _ = render()
     torch.cuda.synchronize()
+    assert cuda_build.launches["scatter_rows"] == before["scatter_rows"]
     assert float(new[3].abs().max()) > 0
+    for x, y in zip(new, old):
+        assert torch.equal(x, y)
+
+
+# ---- K1's backward, the rows' scatter-add (csrc/scatter_rows.cu) ----------
+
+# the start states' lists of two cells (the benchmark's polish states, one
+# view, at each cell's k_tile) and synthetic lists at two widths
+SCATTER_CASES = ["blender800", "real1m", "synthetic16", "synthetic32"]
+
+
+def synthetic_scatter_lists(width, dev, k_tile=256, seed=17,
+                            n=4000) -> dict:
+    """K1's lists on ``dev`` for width + 6 tiles of a table of ``n`` rows:
+    two empty tiles, two with more entries than k_tile (the cap cuts
+    them), the rest of 1 to 2·k_tile; no Gaussian twice in a tile, none in
+    more than ``width`` tiles, and Gaussian 7 in the live slots of exactly
+    ``width`` tiles.  Returns ``gidx``, the capped ``counts``, ``dead`` (n)
+    and ``width``."""
+    rng = np.random.default_rng(seed)
+    n_tiles = width + 6
+    counts = rng.integers(1, 2 * k_tile, n_tiles)
+    counts[[0, 5]] = 0
+    counts[[1, 2]] = (k_tile + 40, 2 * k_tile)
+    hot = np.flatnonzero(counts)[:width]
+    lists = []
+    for t, c in enumerate(counts):
+        ids = rng.choice(np.arange(8, n), c, replace=False)
+        if t in hot:
+            ids[rng.integers(0, min(c, k_tile))] = 7
+        lists.append(ids)
+    capped = np.minimum(counts, k_tile)
+    live = np.concatenate([ids[:c] for ids, c in zip(lists, capped)])
+    per_row = np.bincount(live, minlength=n)
+    assert per_row[7] == width and per_row.max() == width
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    t32 = (lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev))
+    capped_t = t32(capped)
+    gidx = rc.slot_lists(t32(np.concatenate(lists)), t32(starts), capped_t,
+                         n_tiles, k_tile, n)
+    return dict(gidx=gidx, counts=capped_t, dead=n, width=width)
+
+
+def scatter_case(case, dev) -> dict:
+    if case.startswith("synthetic"):
+        return synthetic_scatter_lists(int(case[len("synthetic"):]), dev)
+    from chip_smoke import cell_lists
+
+    return cell_lists(case, dev)
+
+
+def scatter_grad(gidx, seed=5):
+    """A seeded random (n_tiles, k_tile, 16) gradient, every slot's row."""
+    gen = torch.Generator(device=gidx.device)
+    gen.manual_seed(seed)
+    return torch.randn(gidx.shape + (plain.A,), generator=gen,
+                       device=gidx.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", SCATTER_CASES)
+def test_scatter_rows_matches_index_put(cuda_device, case):
+    """The scatter kernel against ``index_put_``'s scatter-add of every
+    slot (``scatter_rows_plain``, the card's path before the kernel), run on
+    the card on the same lists and gradients: rows < dead equal bit for
+    bit, the dead rows zero, every row equal to the kernel's plain design
+    (``scatter_live_rows_plain``), two launches bit-identical, each
+    counted once."""
+    x = scatter_case(case, cuda_device)
+    gidx, counts, dead, width = x["gidx"], x["counts"], x["dead"], x["width"]
+    grad = scatter_grad(gidx)
+    before = dict(cuda_build.launches)
+    got = rc.scatter_rows(grad, gidx, counts, dead, width)
+    again = rc.scatter_rows(grad, gidx, counts, dead, width)
+    torch.cuda.synchronize()
+    assert _counts_since(before, cuda_build.launches) == _want(
+        scatter_rows=2)
+    want = plain.scatter_rows_plain(grad, gidx, dead)
+    assert got.shape == want.shape == (dead + plain.DEAD_SPREAD, plain.A)
+    assert torch.equal(got[:dead], want[:dead])
+    assert not bool(got[dead:].any()) and bool(want[dead:].any())
+    assert torch.equal(got, again)
+    assert torch.equal(got, plain.scatter_live_rows_plain(
+        grad, gidx, counts, dead, width))
+    assert 0 < int(counts.sum()) < gidx.numel()
+
+
+@pytest.mark.cuda
+def test_scatter_rows_graph_replay_and_no_sync(cuda_device):
+    """The scatter kernel (its counters' memset and both passes) captured
+    in a CUDA graph: a replay equals the eager call bit for bit, before and
+    after new gradients and new lists are copied into the captured inputs;
+    an eager call makes no synchronisation."""
+    x = synthetic_scatter_lists(16, cuda_device)
+    y = synthetic_scatter_lists(16, cuda_device, seed=18)
+    gidx, counts = x["gidx"].clone(), x["counts"].clone()
+    grad = scatter_grad(gidx)
+
+    def call():
+        return rc.scatter_rows(grad, gidx, counts, x["dead"], x["width"])
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = call()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for new in ((grad.clone(), x["gidx"], x["counts"]),
+                (scatter_grad(gidx, seed=6), y["gidx"], y["counts"])):
+        for dst, src in zip((grad, gidx, counts), new):
+            dst.copy_(src)
+        graph.replay()
+        eager = call()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+    assert not torch.equal(captured, first)     # the second lists differ
+    assert bool(first.any())
+
+
+def layout_grads(layout: str, dev) -> tuple:
+    """The gradients of a render's loss in the offsets, colours and
+    opacities of ``scene_arrays``' views on ``dev``: one view whole
+    (``view``), its 6 tiles in 3 slices (``shards3``: K1's tile0 0, 2 and
+    4), or two scenes' packed grid (``two_scenes``: dead = 2·300)."""
+    leaves, projs, cols, ops = [], [], [], []
+    for s in range(2 if layout == "two_scenes" else 1):
+        a = scene_arrays(seed=5 + s)
+        proj = _project(a, dev)
+        off = torch.zeros((N, 2), device=dev, requires_grad=True)
+        projs.append(proj._replace(means2d=proj.means2d + off))
+        cols.append(torch.tensor(a["colors"], device=dev, requires_grad=True))
+        ops.append(torch.tensor(a["opac"], device=dev, requires_grad=True))
+        leaves += [off, cols[-1], ops[-1]]
+    if layout == "two_scenes":
+        outs = rc.rasterize_cuda_scenes(projs, cols, ops, W, H,
+                                        RasterizeConfig())
+    else:
+        outs = [rc.rasterize_cuda(projs[0], cols[0], ops[0], W, H,
+                                  RasterizeConfig(),
+                                  tile_shards=3 if layout == "shards3" else 0)]
+    loss = sum(torch.mean((o.rgb - 0.25) ** 2) + 0.3 * torch.mean(o.depth)
+               for o in outs)
+    return torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["shards3", "two_scenes"])
+def test_sliced_and_packed_gradients_equal_gather_path(cuda_device,
+                                                      monkeypatch, layout):
+    """A render whose 6 tiles are composited in 3 slices and two scenes'
+    packed grid (``layout_grads``), each through the scatter kernel (once a
+    slice, once for the packed grid), against the same renders through
+    ``attrs[gidx]`` and PyTorch's scatter-add of every slot: the parameter
+    gradients equal bit for bit."""
+    before = dict(cuda_build.launches)
+    new = layout_grads(layout, cuda_device)
+    torch.cuda.synchronize()
+    n = 3 if layout == "shards3" else 1
+    assert _counts_since(before, cuda_build.launches) == _want(
+        slot_rows=n, composite_fwd=n, composite_bwd=n, scatter_rows=n)
+    monkeypatch.setattr(rc._SlotRows, "apply", gather_path)
+    old = layout_grads(layout, cuda_device)
+    torch.cuda.synchronize()
+    assert all(float(g.abs().max()) > 0 for g in new)
+    for x, y in zip(new, old):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_shaded_render_gradients_equal_gather_path(cuda_device,
+                                                   monkeypatch):
+    """The main path's render of the blender cell's start state (the shade
+    kernels' table with its dead rows, K1 at the cell's k_tile 2048, K2, K3
+    and the scatter kernel, whose dead rows' gradient is zero) against the
+    same render through ``attrs[gidx]`` and PyTorch's scatter-add of every
+    slot: the six groups' gradients equal bit for bit, since the shade
+    backward reads the table's rows below the dead ones alone."""
+    from chip_smoke import cell_shade_state
+    from touchgs_torch.models.splatfacto import render
+    from touchgs_torch.ops import shade as sh
+
+    params, cam, mcfg = cell_shade_state("blender800", cuda_device)
+
+    def grads():
+        leaves = {g: getattr(params, g).detach().clone().requires_grad_()
+                  for g in sh.GROUPS}
+        out, _ = render(dataclasses.replace(params, **leaves), cam, mcfg)
+        loss = (torch.mean((out.rgb - 0.25) ** 2)
+                + 0.3 * torch.mean(out.depth))
+        return torch.autograd.grad(loss, list(leaves.values()))
+
+    before = dict(cuda_build.launches)
+    new = grads()
+    torch.cuda.synchronize()
+    assert _counts_since(before, cuda_build.launches) == _want(
+        shade_fwd=1, slot_rows=1, composite_fwd=1, composite_bwd=1,
+        scatter_rows=1, shade_bwd=1)
+    monkeypatch.setattr(rc._SlotRows, "apply", gather_path)
+    old = grads()
+    torch.cuda.synchronize()
+    assert float(new[0].abs().max()) > 0
     for x, y in zip(new, old):
         assert torch.equal(x, y)
 
@@ -1471,7 +1693,8 @@ def test_viewer_frame_on_card(cuda_device):
                 for m in ("rgb", "depth", "acc")}
         torch.cuda.synchronize()
         assert cuda_build.launches == _want(slot_rows=5, composite_fwd=5,
-                                            composite_bwd=2, ssim_fwd=2,
+                                            composite_bwd=2, scatter_rows=2,
+                                            ssim_fwd=2,
                                             ssim_bwd=2, shade_fwd=5,
                                             shade_bwd=2)
     c2w = orbit_c2w(0.3, 0.2, 2.5)
@@ -1515,8 +1738,8 @@ def test_two_scene_step_on_card(cuda_device):
         *(torch.stack([b[i] for b in batches]) for i in (1, 2, 3)), 3)
     torch.cuda.synchronize()
     assert cuda_build.launches == _want(slot_rows=1, composite_fwd=1,
-                                        composite_bwd=1, ssim_fwd=2,
-                                        ssim_bwd=2)
+                                        composite_bwd=1, scatter_rows=1,
+                                        ssim_fwd=2, ssim_bwd=2)
     step = make_train_step(cfg, opt)
     for s in range(2):
         p = copy.deepcopy(params[s])
@@ -1552,7 +1775,7 @@ def test_tile_shards_on_card(cuda_device):
         torch.cuda.synchronize()
         n = max(shards, 1)
         assert cuda_build.launches == _want(slot_rows=n, composite_fwd=n,
-                                            composite_bwd=n)
+                                            composite_bwd=n, scatter_rows=n)
         outs[shards] = (out, grads)
     (o0, g0), (o4, g4) = outs[0], outs[4]
     for k in ("rgb", "depth", "acc"):
@@ -1760,7 +1983,8 @@ def test_multiscene_mesh_world_of_one(cuda_device):
                 placed(state0, m), *batch)
             torch.cuda.synchronize()
             assert cuda_build.launches == _want(slot_rows=1, composite_fwd=1,
-                                                composite_bwd=1, ssim_fwd=2,
+                                                composite_bwd=1,
+                                                scatter_rows=1, ssim_fwd=2,
                                                 ssim_bwd=2)
             stepped[name] = (whole(state, m), metrics)
         for name, m in meshes.items():
@@ -2128,16 +2352,17 @@ def _graph_against_eager(step, state, batches: list, between=None) -> dict:
 
 def _check_graph_against_eager(out: dict, n_launches: int, n_losses: int,
                                n_shades: int) -> None:
-    """``n_launches`` of each of K1 with rows, K2 and K3, ``n_losses`` of
-    each SSIM kernel (one a scene a step) and ``n_shades`` of each shade
-    kernel (one a step where ``render`` shades on the card) on each
-    side."""
+    """``n_launches`` of each of K1 with rows, K2, K3 and the rows'
+    scatter-add, ``n_losses`` of each SSIM kernel (one a scene a step) and
+    ``n_shades`` of each shade kernel (one a step where ``render`` shades
+    on the card) on each side."""
     (el, es, ec), (gl, gs, gc) = out["eager"], out["graph"]
     assert np.isfinite(gl).all()
     np.testing.assert_allclose(gl, el, rtol=1e-3)
     assert _same_tensors(graphs.state_tensors(gs), graphs.state_tensors(es))
     want = _want(slot_rows=n_launches, composite_fwd=n_launches,
-                 composite_bwd=n_launches, ssim_fwd=n_losses,
+                 composite_bwd=n_launches, scatter_rows=n_launches,
+                 ssim_fwd=n_losses,
                  ssim_bwd=n_losses, shade_fwd=n_shades, shade_bwd=n_shades)
     assert ec == want and gc == want, (ec, gc)
 

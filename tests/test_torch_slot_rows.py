@@ -8,7 +8,11 @@ against PyTorch's own backward of ``attrs[gidx]`` (equal) and against
 ``jax.vjp`` of the gather (the gradient tolerance, 5e-6).  Two inputs: the
 tiles of the 300-Gaussian scene of ``tests/test_torch_rasterize.py``, and
 ``synthetic_slots``, with empty tiles and tiles that hold more than k_tile
-entries.
+entries.  On the CPU ``rc.scatter_rows``, that backward, is PyTorch's
+scatter-add of every slot bit for bit; the card's kernel adds the live
+slots alone, and its design written out in plain PyTorch
+(``scatter_live_rows_plain``) equals the same VJP bit for bit on the rows
+below the dead ones.
 
 The launch path's checks: ``cuda_build.check_tensor`` on a wrong dtype,
 shape or layout, and every wrapper on a mix of devices (meta tensors
@@ -57,6 +61,10 @@ def _jax_slot_rows(attrs, sg, starts, capped, n_tiles, k_tile, dead):
     return np.asarray(gidx), np.asarray(jnp.asarray(attrs)[gidx])
 
 
+# the most live slots one row of the lists takes: its tiles' cap
+WIDTH = RasterizeConfig().max_tiles_per_gaussian
+
+
 def _torch_args(attrs, sg, starts, capped, n_tiles, dead, k_tile,
                 requires_grad=False):
     return (torch.tensor(attrs, requires_grad=requires_grad),
@@ -90,12 +98,12 @@ def _slot_rows_grads(case, k_tile, scene):
     attrs, sg, starts, capped, n_tiles, dead = _slot_case(case, k_tile, scene)
     args = _torch_args(attrs, sg, starts, capped, n_tiles, dead, k_tile,
                        requires_grad=True)
-    rows, gidx = rc._SlotRows.apply(*args)
+    rows, gidx = rc._SlotRows.apply(*args, WIDTH)
     assert not gidx.requires_grad
     g = torch.tensor(np.random.default_rng(1).normal(size=rows.shape)
                      .astype(np.float32))
     (grad,) = torch.autograd.grad(rows, args[0], g)
-    return args[0], gidx, g, grad
+    return args[0], gidx, g, grad, args[3]
 
 
 @pytest.fixture
@@ -115,20 +123,102 @@ def one_thread():
 @pytest.mark.parametrize("case", ["scene", "synthetic"])
 def test_slot_rows_backward_equals_index_backward(scene, one_thread, case,
                                                   k_tile):
-    attrs, gidx, g, grad = _slot_rows_grads(case, k_tile, scene)
+    attrs, gidx, g, grad, _ = _slot_rows_grads(case, k_tile, scene)
     (want,) = torch.autograd.grad(attrs[gidx], attrs, g)
     assert torch.equal(grad, want)
     assert float(grad[-plain.DEAD_SPREAD:].abs().max()) > 0
 
 
+@pytest.mark.parametrize("k_tile", K_TILES)
+@pytest.mark.parametrize("case", ["scene", "synthetic"])
+def test_scatter_rows_on_the_cpu_is_index_put(scene, one_thread, case,
+                                               k_tile):
+    """On the CPU ``rc.scatter_rows`` is PyTorch's scatter-add of every
+    slot, the dead ones too, the call ``index_put_`` makes, bit for bit,
+    and launches nothing."""
+    attrs, gidx, g, _, counts = _slot_rows_grads(case, k_tile, scene)
+    want = torch.zeros(attrs.shape)
+    torch.ops.aten._index_put_impl_(want, (gidx,), g, accumulate=True,
+                                    unsafe=True)
+    dead = attrs.shape[0] - plain.DEAD_SPREAD
+    before = dict(cuda_build.launches)
+    got = rc.scatter_rows(g, gidx, counts, dead, WIDTH)
+    assert cuda_build.launches == before
+    assert torch.equal(got, want)
+    assert float(got[dead:].abs().max()) > 0
+
+
+@pytest.mark.parametrize("k_tile", K_TILES)
+@pytest.mark.parametrize("case", ["scene", "synthetic"])
+def test_live_rows_mirror_equals_index_backward(scene, one_thread, case,
+                                                k_tile):
+    """The scatter kernel's design in plain PyTorch
+    (``scatter_live_rows_plain``: the live slots alone, each row's in
+    ascending slot order, summed from +0.0) equals ``attrs[gidx]``'s VJP
+    bit for bit on every row < dead, and is zero on the dead rows."""
+    attrs, gidx, g, want, counts = _slot_rows_grads(case, k_tile, scene)
+    dead = attrs.shape[0] - plain.DEAD_SPREAD
+    got = plain.scatter_live_rows_plain(g, gidx, counts, dead, WIDTH)
+    assert got.shape == want.shape
+    assert torch.equal(got[:dead], want[:dead])
+    assert not bool(got[dead:].any())
+    assert float(want[dead:].abs().max()) > 0    # the dead slots did add
+    live = int(counts.sum())
+    assert 0 < live < gidx.numel()
+
+
+def test_live_rows_mirror_rejects_a_row_past_width():
+    """A row in more live slots than ``width``, or a live slot naming a row
+    ≥ dead, raises in the plain design, where the kernel traps."""
+    gidx = torch.tensor([[3, 5], [3, 7], [3, 6]], dtype=torch.int32)
+    counts = torch.tensor([2, 1, 1], dtype=torch.int32)
+    g = torch.ones((3, 2, plain.A))
+    out = plain.scatter_live_rows_plain(g, gidx, counts, 6, 3)
+    assert out[3, 0] == 3 and out[5, 0] == 1 and not bool(out[6:].any())
+    with pytest.raises(ValueError, match="more than width=2"):
+        plain.scatter_live_rows_plain(g, gidx, counts, 6, 2)
+    with pytest.raises(ValueError, match=r"outside \[0, 5\)"):
+        plain.scatter_live_rows_plain(g, gidx, counts, 5, 3)
+
+
 @pytest.mark.parametrize("case", ["scene", "synthetic"])
 def test_slot_rows_backward_matches_jax_vjp(scene, case):
-    attrs, gidx, g, grad = _slot_rows_grads(case, 512, scene)
+    attrs, gidx, g, grad, _ = _slot_rows_grads(case, 512, scene)
     ji = jnp.asarray(gidx.numpy())
     _, vjp = jax.vjp(lambda a: a[ji], jnp.asarray(attrs.detach().numpy()))
     (want,) = vjp(jnp.asarray(g.numpy()))
     np.testing.assert_allclose(grad.numpy(), np.asarray(want), atol=5e-6,
                                rtol=0)
+
+
+@pytest.mark.parametrize("layout", ["view", "shards3", "two_scenes"])
+def test_dead_rows_gradient_reaches_no_parameter(monkeypatch, one_thread,
+                                                 layout):
+    """Whatever the table's dead rows' gradient holds (the card's scatter
+    kernel leaves it zero, PyTorch's scatter-add sums the dead slots into
+    it), a render's parameter gradients are the same: with those rows
+    poisoned (NaN) they are unchanged bit for bit, since no reader takes
+    them (the dead rows' concatenation drops them), for one view, its grid
+    in 3 slices (K1's ``tile0`` 0, 2, 4) and two scenes' packed grid."""
+    from tests.test_torch_cuda import N as n_gauss
+    from tests.test_torch_cuda import layout_grads
+
+    want = layout_grads(layout, "cpu")
+    scatter, calls = rc.scatter_rows, []
+
+    def dead_rows_poisoned(grad_rows, gidx, counts, dead, w):
+        out = scatter(grad_rows, gidx, counts, dead, w)
+        out[dead:] = float("nan")
+        calls.append(dead)
+        return out
+
+    monkeypatch.setattr(rc, "scatter_rows", dead_rows_poisoned)
+    got = layout_grads(layout, "cpu")
+    assert calls == {"view": [n_gauss], "shards3": [n_gauss] * 3,
+                     "two_scenes": [2 * n_gauss]}[layout]
+    assert all(float(g.abs().max()) > 0 for g in want)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
 
 
 def _meta(shape, dtype=torch.int32):
@@ -173,6 +263,25 @@ _FAULTS = {
         _meta(_ROWS, torch.bfloat16)), "devices"),
     "compile_smoke_devices": (lambda: cuda_build.compile_smoke(
         _meta((8, 128), torch.float32)), "devices"),
+    "scatter_rows_dtype": (lambda: rc.scatter_rows(
+        _cpu(_ROWS, torch.float32), _cpu((6, 512), torch.int64), _cpu(6),
+        40, 16), "gidx: want contiguous torch.int32"),
+    "scatter_rows_shape": (lambda: rc.scatter_rows(
+        _cpu((6, 256, 16), torch.float32), _cpu((6, 512)), _cpu(6), 40, 16),
+        r"grad_rows: want .* \(6, 512, 16\), got torch.float32 "
+        r"\(6, 256, 16\)"),
+    "scatter_rows_counts": (lambda: rc.scatter_rows(
+        _cpu(_ROWS, torch.float32), _cpu((6, 512)), _cpu(7), 40, 16),
+        r"counts: want .* \(6,\)"),
+    "scatter_rows_lists": (lambda: rc.scatter_rows(
+        _cpu(_ROWS, torch.float32), _cpu(6 * 512), _cpu(6), 40, 16),
+        r"gidx: want \(n_tiles, k_tile\)"),
+    "scatter_rows_width": (lambda: rc.scatter_rows(
+        _cpu(_ROWS, torch.float32), _cpu((6, 512)), _cpu(6), 40, 0),
+        "want width >= 1"),
+    "scatter_rows_devices": (lambda: rc.scatter_rows(
+        _cpu(_ROWS, torch.float32), _meta((6, 512)), _meta(6), 40, 16),
+        "devices"),
 }
 
 

@@ -37,7 +37,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC / "build"
 KERNELS = ("slot_lists", "composite_fwd", "composite_bwd", "compile_smoke",
-           "anatomy_variants", "bf16_probe", "ssim", "shade")
+           "anatomy_variants", "bf16_probe", "ssim", "shade", "scatter_rows")
 # launchers that live in another source's library than their own name's
 LIBRARY = {"ssim_fwd": "ssim", "ssim_bwd": "ssim", "shade_fwd": "shade",
            "shade_bwd": "shade"}
@@ -54,6 +54,9 @@ SIGNATURES = {
     # sorted_gauss, starts, counts, attrs (or null), gidx, rows (or null);
     # n_tiles, k_tile, dead, tile0; stream
     "slot_lists": [_P] * 6 + [_I] * 4 + [_P],
+    # slot gradients, gidx, counts, scratch, the table's gradient; n_tiles,
+    # k_tile, dead, width; stream
+    "scatter_rows": [_P] * 5 + [_I] * 4 + [_P],
     "composite_fwd": [_P, _P, _P, _P] + [_I] * 6 + [_F, _F, _I, _P],
     "composite_bwd": [_P] * 6 + [_I] * 6 + [_F, _F, _P],
     "compile_smoke": [_P, _P, _I, _P],
@@ -82,10 +85,10 @@ SIGNATURES = {
 # viewer renders on another thread than training, so the counts are
 # incremented under a lock.
 launches = dict.fromkeys((
-    "slot_lists", "slot_rows", "composite_fwd", "composite_bwd", "ssim_fwd",
-    "ssim_bwd", "shade_fwd", "shade_bwd", "compile_smoke", "anatomy_full",
-    "anatomy_no_mxu", "anatomy_alpha_only", "anatomy_noexp",
-    "bf16_probe_f32", "bf16_probe_bf16"), 0)
+    "slot_lists", "slot_rows", "scatter_rows", "composite_fwd",
+    "composite_bwd", "ssim_fwd", "ssim_bwd", "shade_fwd", "shade_bwd",
+    "compile_smoke", "anatomy_full", "anatomy_no_mxu", "anatomy_alpha_only",
+    "anatomy_noexp", "bf16_probe_f32", "bf16_probe_bf16"), 0)
 # the launches of the graphed step's warm-ups, on a clone of the state
 # (``train/graphs.py``), counted apart from ``launches``
 launches_warmup = dict.fromkeys(launches, 0)

@@ -3,16 +3,18 @@ backward (port of ``touchgs_tpu/ops/rasterize_pallas.py``).
 
 Division of labour, as in the JAX package:
 
-- **PyTorch**: binning (``ops.tiles``) and the backward of the per-tile
-  gather, PyTorch's scatter-add, so the kernels stay free of atomics;
-  projection, SH and attribute packing too on the CPU and where the
-  camera takes a gradient (``_attr_rows``), while ``splatfacto.render``
-  hands the card's other renders the table ``ops.shade``'s kernels
-  packed (``attrs``).
+- **PyTorch**: binning (``ops.tiles``); projection, SH and attribute
+  packing too on the CPU and where the camera takes a gradient
+  (``_attr_rows``), while ``splatfacto.render`` hands the card's other
+  renders the table ``ops.shade``'s kernels packed (``attrs``).
 - **K1** ``slot_rows`` (``csrc/slot_lists.cu``): the front-packed per-tile
   lists ``gidx`` and, in the same pass, the dense ``(n_tiles, k_tile, 16)``
   attribute rows ``attrs[gidx]`` the compositing kernels read.
-  ``slot_lists`` is the same kernel writing ``gidx`` alone.
+  ``slot_lists`` is the same kernel writing ``gidx`` alone.  Its backward,
+  ``scatter_rows`` (``csrc/scatter_rows.cu``), adds the live slots'
+  gradient rows into per-Gaussian rows in a fixed order, with integer
+  atomics only; the dead rows' gradient, which nothing reads, is zero on
+  the card (PyTorch's scatter-add, every slot, on the CPU).
 - **K2** ``forward_tiles`` (``csrc/composite_fwd.cu``): front-to-back
   compositing of each tile with the two-chunks-stale tile-wide exit; row 6
   of its output records the chunks composited.  Any tile shape up to
@@ -131,37 +133,62 @@ def slot_rows(attrs, sorted_gauss, tile_starts, counts, n_tiles: int,
 class _SlotRows(torch.autograd.Function):
     """K1 with rows as the differentiable gather ``attrs[gidx]``: the
     forward returns (rows, gidx), ``gidx`` not differentiable; the backward
-    is the gather's VJP as PyTorch computes it for ``attrs[gidx]``, a
-    scatter-add of the rows' gradients into a zero table, through the same
-    call, which skips the public ``index_put_``'s range check of the
-    indices (a min and a max read back to the host: two syncs a step)."""
+    is the gather's VJP through ``scatter_rows`` with the lists, the capped
+    ``counts`` and ``width``, the most live slots one row of the lists can
+    take (``max_tiles_per_gaussian``)."""
 
     @staticmethod
     def forward(ctx, attrs, sorted_gauss, tile_starts, counts, n_tiles,
-                k_tile, dead, tile0=0):
+                k_tile, dead, width, tile0=0):
         gidx, rows = slot_rows(attrs, sorted_gauss, tile_starts, counts,
                                n_tiles, k_tile, dead, tile0)
         ctx.mark_non_differentiable(gidx)
-        ctx.save_for_backward(gidx)
-        ctx.attrs_shape = attrs.shape
+        ctx.save_for_backward(gidx, counts)
+        ctx.dead, ctx.width = dead, width
         return rows, gidx
 
     @staticmethod
     def backward(ctx, grad_rows, _):
-        gidx, = ctx.saved_tensors
-        return (scatter_rows(grad_rows, gidx, ctx.attrs_shape), None, None,
-                None, None, None, None, None)
+        gidx, counts = ctx.saved_tensors
+        return (scatter_rows(grad_rows.contiguous(), gidx, counts, ctx.dead,
+                             ctx.width),
+                None, None, None, None, None, None, None, None)
 
 
-def scatter_rows(grad_rows, gidx, attrs_shape) -> torch.Tensor:
-    """The gather ``attrs[gidx]``'s VJP: ``grad_rows`` (n_tiles, k_tile, 16)
-    scatter-added by ``gidx`` into a zero table of ``attrs_shape``, with
-    duplicate indices, through ``index_put_``'s accumulating call without
-    its range check of the indices."""
-    dattrs = grad_rows.new_zeros(attrs_shape)
-    torch.ops.aten._index_put_impl_(dattrs, (gidx,), grad_rows,
-                                    accumulate=True, unsafe=True)
-    return dattrs
+def scatter_rows(grad_rows, gidx, counts, dead: int,
+                 width: int) -> torch.Tensor:
+    """The gather ``attrs[gidx]``'s VJP: the (dead + 512, 16) table's
+    gradient from the (n_tiles, k_tile, 16) slot gradients ``grad_rows``,
+    the (n_tiles, k_tile) lists ``gidx`` and the capped per-tile
+    ``counts``.  On the CPU PyTorch's scatter-add of every slot
+    (``scatter_rows_plain``); on CUDA the scatter kernel, which adds the
+    live slots alone, each row's in ascending slot order from +0.0 (rows <
+    dead bit for bit the CPU's sums, ``scatter_live_rows_plain``), and
+    writes the dead rows as zeros.  ``width`` bounds the live slots of one
+    row; the kernel traps past it."""
+    if gidx.dim() != 2:
+        raise ValueError(f"gidx: want (n_tiles, k_tile), got "
+                         f"{tuple(gidx.shape)}")
+    n_tiles, k_tile = gidx.shape
+    _check(grad_rows, "grad_rows", torch.float32, (n_tiles, k_tile, plain.A))
+    _check(gidx, "gidx", torch.int32, (n_tiles, k_tile))
+    _check(counts, "counts", torch.int32, (n_tiles,))
+    if width < 1 or dead < 0:
+        raise ValueError(f"scatter_rows: want width >= 1 and dead >= 0, got "
+                         f"width={width}, dead={dead}")
+    if not _on_cuda(grad_rows, gidx, counts):
+        return plain.scatter_rows_plain(grad_rows, gidx, dead)
+    if n_tiles * k_tile >= 2**31:
+        raise ValueError("scatter_rows: the kernel numbers the slots in "
+                         "int32: want n_tiles · k_tile < 2**31")
+    out = torch.empty((dead + plain.DEAD_SPREAD, plain.A),
+                      dtype=torch.float32, device=grad_rows.device)
+    scratch = torch.empty(dead * (width + 1), dtype=torch.int32,
+                          device=grad_rows.device)
+    cuda_build.launch("scatter_rows", grad_rows.data_ptr(), gidx.data_ptr(),
+                      counts.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+                      n_tiles, k_tile, dead, width)
+    return out
 
 
 def forward_tiles(n_chunks, tile_ids, attrs_tiled, th, tw, k_tile, k_chunk,
@@ -291,7 +318,7 @@ def _composite(attrs, sorted_gauss, tile_starts, counts, tile_ids, geom,
     attrs_tiled, _ = _SlotRows.apply(attrs, sorted_gauss, tile_starts,
                                      capped, n, k_tile,
                                      attrs.shape[0] - plain.DEAD_SPREAD,
-                                     tile0)
+                                     cfg.max_tiles_per_gaussian, tile0)
     n_chunks = torch.div(capped + k_chunk - 1, k_chunk,
                          rounding_mode="floor").to(torch.int32)
     return _CompositeTiles.apply(attrs_tiled, n_chunks, tile_ids, geom,

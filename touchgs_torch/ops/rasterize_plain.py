@@ -1,6 +1,8 @@
 """Plain PyTorch versions of the three tile kernels (K1 slot lists, with or
 without their attribute rows, K2 forward compositing, K3 backward
-compositing).
+compositing) and of the rows' scatter-add, K1's backward: PyTorch's, which
+the CPU runs, and the card's kernel's design written out, which the tests
+hold the kernel to.
 
 Each computes the same function as its CUDA kernel in
 ``touchgs_torch/csrc/`` and as the Pallas kernel it replaces in
@@ -51,6 +53,46 @@ def slot_rows_plain(attrs, sorted_gauss, tile_starts, counts, n_tiles: int,
     gidx = slot_lists_plain(sorted_gauss, tile_starts, counts, n_tiles,
                             k_tile, dead, tile0)
     return gidx, attrs[gidx]
+
+
+def scatter_rows_plain(grad_rows, gidx, dead: int) -> torch.Tensor:
+    """The gather ``attrs[gidx]``'s VJP as PyTorch computes it: the
+    (n_tiles, k_tile, 16) ``grad_rows`` scatter-added by ``gidx``, every
+    slot, the dead ones too, into a zero (dead + 512, 16) table, through
+    ``index_put_``'s accumulating call without its range check of the
+    indices (a min and a max read back to the host)."""
+    out = grad_rows.new_zeros((dead + DEAD_SPREAD, A))
+    torch.ops.aten._index_put_impl_(out, (gidx,), grad_rows,
+                                    accumulate=True, unsafe=True)
+    return out
+
+
+def scatter_live_rows_plain(grad_rows, gidx, counts, dead: int,
+                            width: int) -> torch.Tensor:
+    """The scatter kernel's sums (``csrc/scatter_rows.cu``) written out: each
+    row g < dead of the (dead + 512, 16) table is the sum, from +0.0, of
+    the gradient rows of the live slots (j < counts[t]) that name it, in
+    ascending slot order t·k_tile + j; every other row is zero.  A row in
+    more than ``width`` live slots, or a live slot naming a row ≥ dead,
+    raises, where the kernel traps."""
+    n_tiles, k_tile = gidx.shape
+    j = torch.arange(k_tile, device=gidx.device)
+    slots = torch.nonzero((j[None, :] < counts[:, None]).reshape(-1))[:, 0]
+    rows, order = torch.sort(gidx.reshape(-1)[slots].long(), stable=True)
+    slots = slots[order]                 # each row's slots, ascending
+    rank = (torch.arange(rows.numel(), device=rows.device)
+            - torch.searchsorted(rows, rows))
+    if rows.numel() and (int(rows[0]) < 0 or int(rows[-1]) >= dead):
+        raise ValueError(f"a live slot names a row outside [0, {dead})")
+    if rows.numel() and int(rank.max()) >= width:
+        raise ValueError(f"a row lies in {int(rank.max()) + 1} live slots, "
+                         f"more than width={width}")
+    out = grad_rows.new_zeros((dead + DEAD_SPREAD, A))
+    flat = grad_rows.reshape(-1, A)
+    for r in range(int(rank.max()) + 1 if rows.numel() else 0):
+        pick = rank == r                 # each row at most once
+        out[rows[pick]] += flat[slots[pick]]
+    return out
 
 
 def _pixel_geometry(tile_ids, th, tw, n_tx):

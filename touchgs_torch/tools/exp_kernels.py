@@ -12,8 +12,9 @@ k_tile 512.  Rows, as the JAX tool's:
 - ``slot rows``: the port's K1 with rows, which does both in one pass;
 - ``fwd kernel`` and ``bwd kernel``: K2 and K3 at k_chunk 128 (K3 on a
   cotangent of ones);
-- ``scatter real``: the gather's VJP, the duplicate-index scatter-add of
-  ``_SlotRows.backward`` (``rasterize_cuda.scatter_rows``);
+- ``scatter real``: the gather's VJP as ``_SlotRows.backward`` takes it
+  (``rasterize_cuda.scatter_rows``: on the card the scatter kernel, which
+  adds the live slots alone), on K3's gradients;
 - ``ssim fwd`` and ``ssim fwd+grad`` on two 800x800x3 images from
   ``default_rng(0)``: the kernels of ``csrc/ssim.cu``; beside them
   ``ssim plain fwd+grad`` (``ssim_fwd_plain`` and ``ssim_bwd_plain`` on the
@@ -68,7 +69,8 @@ def kernel_rows(x: dict) -> tuple:
         "bwd kernel": (lambda a, f, g: rc.backward_tiles(
             done, tids, a, f, g, *geom), (at, fwd, ones)),
         "scatter real": (rc.scatter_rows,
-                         (dattrs, x["gidx"], tuple(x["attrs"].shape))),
+                         (dattrs, x["gidx"], x["k1"][2], x["k1"][5],
+                          x["geom"][5].max_tiles_per_gaussian)),
     }, fwd
 
 

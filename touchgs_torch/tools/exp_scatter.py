@@ -1,18 +1,31 @@
 """The candidates for the backward's gradient reduction, and the sorts of
 the binning, timed on the card (port of ``tools/exp_scatter.py``).
 
-The step's scatter-add (``rasterize_cuda.scatter_rows``, the VJP of the
-per-tile gather ``attrs[gidx]``) adds the (tile, slot) rows' gradients into
-per-Gaussian rows, with duplicate indices.  Candidates, at the JAX tool's
-shapes (700 tiles of 1152 slots, 16 wide, into 131584 rows; 16 pair slots
-a Gaussian), on rows, indices and unique pair ids from ``default_rng(0)``:
+The step's scatter-add (the VJP of the per-tile gather ``attrs[gidx]``)
+adds the (tile, slot) rows' gradients into per-Gaussian rows, with
+duplicate indices.  Candidates, at the JAX tool's shapes (700 tiles of 1152
+slots, 16 wide, into 131584 rows; 16 pair slots a Gaussian), on rows,
+indices and unique pair ids from ``default_rng(0)``:
 
-- A: the duplicate-index scatter-add, as ``_SlotRows.backward`` does it;
+- A: PyTorch's duplicate-index scatter-add (``index_put_`` with
+  accumulate=True, ``rasterize_plain.scatter_rows_plain``), every slot
+  added: ``_SlotRows.backward`` on the CPU;
 - B: a set of each row into its own pair slot of a (131072·16, 16) buffer
   (no collisions), then a reshape-sum over the 16 slots;
 - B′: the same with an add in place of the set;
 - D: the rows gathered by the permutation that sorts them by Gaussian (the
   first step of a sort-based segment sum).
+
+Then on each cell's real lists (``chip_smoke.cell_lists``: the benchmark's
+start state of the cell's configuration, one view, at its k_tile), with a
+seeded random gradient a slot:
+
+- A: as above, every slot of the lists, the dead ones too;
+- E: the scatter kernel (``rasterize_cuda.scatter_rows``, what
+  ``_SlotRows.backward`` runs on the card), the live slots alone;
+
+each also on the device alone (``chip_smoke.device_ms``: the profiler's
+kernel records, a row ``... device``).
 
 Then the sorts of the binning at 2,097,152 elements: (key, value) stable
 and unstable, keys only, and (key, value) with uint32 keys; and the rank
@@ -35,6 +48,7 @@ import numpy as np
 import torch
 
 from touchgs_torch.ops import rasterize_cuda as rc
+from touchgs_torch.ops import rasterize_plain as plain
 from touchgs_torch.tools.exp_common import iters_arg, needs_card
 from touchgs_torch.utils.profiling import card, timed_row
 
@@ -43,6 +57,9 @@ N_TILES, K_WIDE, A = 700, 1152, 16
 C = 131_072 + 512
 T_CAP = 16
 G = 131_072
+# the cells whose start states' lists rows A and E take (``chip_smoke``'s
+# names of the benchmark's configurations)
+CELLS = ("blender800", "mirror720", "real1m")
 
 
 def reduction_inputs(device="cuda", n_tiles: int = N_TILES,
@@ -63,7 +80,8 @@ def reduction_inputs(device="cuda", n_tiles: int = N_TILES,
 
 def scatter_add_dup(x: dict, r):
     """A: (c, 16), the rows added by ``gidx`` with duplicates."""
-    return rc.scatter_rows(r, x["gidx"], (x["c"], A))
+    dead = x["c"] - plain.DEAD_SPREAD
+    return plain.scatter_rows_plain(r, x["gidx"], dead)
 
 
 def _pair_space(x: dict, r, accumulate: bool):
@@ -93,6 +111,23 @@ REDUCTIONS = (("A scatter-add dup", scatter_add_dup),
               ("B scatter set unique", scatter_set_unique),
               ("B' scatter add unique", scatter_add_unique),
               ("D gather rows by perm", gather_rows_by_perm))
+
+
+def cell_rows(lists: dict, seed: int = 0) -> dict:
+    """name → (fn, args) of rows A and E on a cell's lists
+    (``chip_smoke.cell_lists``), with a gradient a slot from a seeded
+    generator on the lists' device."""
+    gidx, counts = lists["gidx"], lists["counts"]
+    gen = torch.Generator(device=gidx.device)
+    gen.manual_seed(seed)
+    grad = torch.randn(gidx.shape + (A,), generator=gen, device=gidx.device)
+    dead, width = lists["dead"], lists["width"]
+    return {
+        "A index_put_ every slot": (plain.scatter_rows_plain,
+                                    (grad, gidx, dead)),
+        "E kernel, live slots": (rc.scatter_rows,
+                                 (grad, gidx, counts, dead, width)),
+    }
 
 
 def sort_inputs(device="cuda", m: int = G * T_CAP, g: int = G,
@@ -149,6 +184,20 @@ def main(argv=None, out: dict | None = None) -> int:
     for name, fn in REDUCTIONS:
         timed_row(times, name, fn, x, x["rows"], iters=iters)
     del x
+    from chip_smoke import cell_lists, device_ms
+
+    for cell in CELLS:
+        lists = cell_lists(cell, "cuda")
+        n_tiles, k_tile = lists["gidx"].shape
+        live = int(lists["counts"].sum())
+        print(f"{cell}: {n_tiles} x {k_tile} slots, {live} live "
+              f"({100 * live / (n_tiles * k_tile):.2f}%)", flush=True)
+        for name, (fn, args) in cell_rows(lists).items():
+            timed_row(times, f"{name} {cell}", fn, *args, iters=iters)
+            ms = device_ms(lambda: fn(*args), iters)
+            times[f"{name} {cell} device"] = ms
+            print(f"{name} {cell} device {ms:9.5f} ms", flush=True)
+        del lists
     for name, (fn, args) in sort_rows(sort_inputs()).items():
         timed_row(times, name, fn, *args, iters=iters)
     if out is not None:
